@@ -3,21 +3,30 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases, each printing one line:
+Phases, each printing its lines:
   1. the device (torch's name and count, nvidia-smi's name and power limit);
   2. build of the CUDA kernels (one nvcc call) and ptxas's report;
-  3. each kernel against its plain torch version ON THE CARD at the n = 2^16
-     path's shapes plus edge lanes: equal raw limbs, kernel and plain times
-     from CUDA events, and the bound (bytes over 3.35 TB/s vs 32-bit
-     multiplies over the card's integer multiply issue rate);
+  3. each of the ten kernels against its plain torch version ON THE CARD at
+     the n = 2^18 path's shapes (its msm3 commits, four-step NTTs and its
+     one msm2 fallback commit) plus edge lanes: equal raw limbs, kernel and
+     plain times from CUDA events, and the bound (bytes over 3.35 TB/s vs
+     32-bit multiplies over the card's integer multiply rate);
   4. the fixture proof on the ceremony SRS: proof.pickle reproduced field
      for field, the three snarkjs vkeys and the golden commitment, verify;
-  5. a mul-chain proof at n = 2^11 on the ceremony SRS, verified;
-  6. the headline: a mul-chain proof at n = 2^16 on Setup.generate(2^16),
-     verified, with per-round times, wall time and peak device memory.
-Phases 4, 5 and 6 each drive the main path with the launch counts set to 0
-just before and read just after: each prints its counts and fails unless
-every kernel was launched in it.
+  5. a mul-chain proof at n = 2^11 on the ceremony SRS, verified (commits
+     through msm2, NTTs through the Stockham transform);
+  6. a mul-chain proof at n = 2^16 on Setup.generate(2^16), verified
+     (commits through msm3, NTTs through the four-step transform);
+  7. the headline: a mul-chain proof at n = 2^18 on Setup.generate(2^18),
+     verified, with per-round times, wall time, peak device memory and a
+     profiled warm proof;
+  8. msm3 commits at m = 2^18 against the exact oracle p(tau) * G (the
+     synthetic SRS's tau is known): random coefficients, a crafted
+     multiplicity overflow that must fall back to msm2, and both through
+     commit_batch.
+Each phase drives its path with the launch counts set to 0 just before and
+read just after, prints its counts, and fails unless every kernel of ITS
+path (REQUIRED below) was launched in it.
 Then one JSON line of per-kernel records, and as the LAST line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
 Needs no network; imports nothing of JAX or the JAX package.
@@ -46,15 +55,42 @@ MULS_PER_MONT = 2 * (64 + 64) + 8
 MONT_PER_JADD = 16
 MONT_PER_MADD = 11
 MONT_PER_DOUBLE = 7
-HEADLINE_N = 1 << 16
+HEADLINE_N = 1 << 18
+MID_N = 1 << 16
 CHAIN_N = 1 << 11
+TAU = 0xDEADBEEF1337  # Setup.generate's known tau: the MSM oracle needs it
 
 SOURCES = {
     "K1": ("plonkathon_tpu_torch/csrc/mont.cu", "plonkathon_tpu/ops/pallas_mont.py:235"),
     "K2": ("plonkathon_tpu_torch/csrc/mont.cu", "plonkathon_tpu/ops/pallas_mont.py:287"),
+    "K3": ("plonkathon_tpu_torch/csrc/msm3.cu", "plonkathon_tpu/ops/msm3.py:152"),
+    "K4": ("plonkathon_tpu_torch/csrc/msm3.cu", "plonkathon_tpu/ops/msm3.py:171"),
     "K5": ("plonkathon_tpu_torch/csrc/msm.cu", "plonkathon_tpu/ops/msm2.py:126"),
     "K6": ("plonkathon_tpu_torch/csrc/msm.cu", "plonkathon_tpu/ops/msm2.py:55"),
     "K7": ("plonkathon_tpu_torch/csrc/mont.cu", "plonkathon_tpu/ops/pallas_mont.py:463"),
+    "K8a": ("plonkathon_tpu_torch/csrc/mont.cu", "plonkathon_tpu/ops/pallas_mont.py:445"),
+    "K8b": ("plonkathon_tpu_torch/csrc/mont.cu", "plonkathon_tpu/ops/pallas_mont.py:454"),
+    "K9": ("plonkathon_tpu_torch/csrc/mont.cu", "plonkathon_tpu/ops/pallas_mont.py:277"),
+}
+
+# The kernels each phase's path must launch.  Small circuits commit through
+# msm2 (K5, K6, K7) and transform through the Stockham NTT; from m = 8192 /
+# n = 2^14 up the path is msm3 (K3, K4, its K5 fold, K7 tables) and the
+# four-step NTT, and K6 runs only on msm3's overflow fallback -- which the
+# mul-chain's verification key takes once: its one public input makes QL
+# the values [1, 0, 0, ...], n equal coefficients 1/n, so every window's
+# digit fills a single bucket.  K8a sums Setup.generate's windows; K8b and
+# K9 have no caller and run in phase 3 alone.
+_SMALL_PATH = ("K1 fr", "K1 fq", "K2", "K5", "K6", "K7")
+_LARGE_PATH = ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K6", "K7", "K8a")
+REQUIRED = {
+    "kernels": ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K6", "K7", "K8a", "K8b", "K9"),
+    "fixture": _SMALL_PATH,
+    "chain-2^11": _SMALL_PATH,
+    "chain-2^16": _LARGE_PATH,
+    "chain-2^18": _LARGE_PATH,
+    "msm3-oracle": ("K3", "K4", "K5"),
+    "msm3-overflow": ("K3", "K4", "K5", "K6"),
 }
 
 
@@ -116,12 +152,13 @@ def _lazy(torch, np, rng, field_ops, w: int, edges: bool = True):
     return torch.from_numpy(limbs.astype(np.int32)).to("cuda")
 
 
-def _real_point(torch):
-    """A real G1 point and its negation as stacked Jacobian [48, 1] (Z = 1)."""
+def _real_point(torch, k: int):
+    """The real G1 point k * G and its negation as stacked Jacobian [48, 1]
+    (Z = 1)."""
     from plonkathon_tpu_torch.ec import G1, pt_mul, pt_neg
     from plonkathon_tpu_torch.ops.limbs import fq, to_device
 
-    g = pt_mul(G1, 0xC0FFEE)
+    g = pt_mul(G1, k)
     out = []
     for pt in (g, pt_neg(g)):
         x, y = (to_device(fq.to_mont_host(int(c)), "cuda")[:, None] for c in pt)
@@ -136,7 +173,7 @@ def _points(torch, np, rng, w: int):
 
     a = torch.cat([_lazy(torch, np, rng, fq, w, edges=False) for _ in range(3)])
     b = torch.cat([_lazy(torch, np, rng, fq, w, edges=False) for _ in range(3)])
-    p, neg_p = _real_point(torch)
+    p, neg_p = _real_point(torch, 0xC0FFEE)
     ident = torch.cat([p[:32], torch.zeros_like(p[32:])])
     for lane, (pa, pb) in enumerate(((ident, p), (p, ident), (p, p), (neg_p, p))):
         a[:, lane : lane + 1] = pa
@@ -144,21 +181,82 @@ def _points(torch, np, rng, w: int):
     return a, b
 
 
+def _packed(torch, np, rng, coords: int, w: int):
+    """Random packed rows [8 * coords, w] (msm3 layout) of lazy Fq limbs."""
+    from plonkathon_tpu_torch.ops import msm3
+    from plonkathon_tpu_torch.ops.limbs import fq
+
+    return msm3.pack_array(
+        torch.cat([_lazy(torch, np, rng, fq, w, edges=False) for _ in range(coords)])
+    )
+
+
+def _plain_scan(torch, step, acc, pts, mask):
+    """The plain one-step version applied over the steps (what a scan
+    launch of K3 / K4 is held against)."""
+    outs = []
+    for s in range(mask.shape[0]):
+        acc = step(acc, pts[s], mask[s])
+        outs.append(acc)
+    return torch.stack(outs)
+
+
+def _inc_case(torch, np, rng, which: str, steps: int, w: int, values):
+    """Inputs of a K3 ("madd") or K4 ("jadd") scan: random packed points and
+    mask values drawn from `values`.  A scan's step 0 is fresh on every lane,
+    as in the pipeline.  Lanes 0-3 hold real points: the accumulator P (set
+    by step 0 in a scan), then Q under each of the kernel's four mask
+    values."""
+    from plonkathon_tpu_torch.ops import msm3
+
+    coords = 2 if which == "madd" else 3
+    pts = torch.stack([_packed(torch, np, rng, coords, w) for _ in range(steps)])
+    acc = _packed(torch, np, rng, 3, w)
+    mask = np.asarray(values)[rng.integers(0, len(values), size=(steps, w))]
+    p, _ = _real_point(torch, 0xC0FFEE)
+    q, _ = _real_point(torch, 0xBEEF)
+    if steps > 1:
+        mask[0] = 1
+        pts[0, :, :4] = msm3.pack_array(p[: 16 * coords])
+    else:
+        acc[:, :4] = msm3.pack_array(p)
+    edge_step = min(1, steps - 1)
+    pts[edge_step, :, :4] = msm3.pack_array(q[: 16 * coords])
+    mask[edge_step, :4] = [0, 1, 2, 3] if which == "madd" else [0, 1, 4, 5]
+    return acc, pts, torch.from_numpy(mask.astype(np.int32)).to("cuda")
+
+
+def _check_k3_decodes(torch, got):
+    """K3's lanes 0-3 after step 1 are P + Q, Q, P - Q and -Q of real
+    points: decode them and hold them against the host curve arithmetic."""
+    from plonkathon_tpu_torch.ec import G1, pt_add, pt_mul, pt_neg
+    from plonkathon_tpu_torch.ops import msm3
+    from plonkathon_tpu_torch.ops.curve import jac_to_affine_host
+
+    p, q = pt_mul(G1, 0xC0FFEE), pt_mul(G1, 0xBEEF)
+    want = [pt_add(p, q), q, pt_add(p, pt_neg(q)), pt_neg(q)]
+    limbs = msm3.unpack_array(got[1][:, :4])
+    for lane in range(4):
+        pt = jac_to_affine_host(tuple(limbs[16 * i : 16 * (i + 1), lane] for i in range(3)))
+        if pt != want[lane]:
+            fail(f"K3 lane {lane} (mask {lane}) does not decode to the expected point")
+
+
 def check_kernels(torch, np) -> list[dict]:
-    """Each kernel against its plain version on the card, at the headline
-    path's shapes."""
-    from plonkathon_tpu_torch.ops import cuda_mont as CM, msm2
+    """Each kernel against its plain version on the card, at the shapes the
+    headline (n = 2^18) path gives it: the msm3 commits and four-step NTTs,
+    and the one msm2 fallback commit at m = 2^18 (K6's scan, K5's widest
+    chunk-fold level, K7's 8-doubling table step); K8a, K8b, K9, which no
+    path calls, at width 2^20."""
+    from plonkathon_tpu_torch.ops import cuda_mont as CM, msm2, msm3
     from plonkathon_tpu_torch.ops.limbs import fq, fr
 
     n, reps = HEADLINE_N, 20
     rng = np.random.default_rng(20260817)
-    k_msm = 32 * n
-    chunks = msm2._choose_chunks(k_msm)
-    steps = k_msm // chunks
     cases = []
 
-    # K1: fr at the quotient's 4n width, fq at the window tables' 32n.
-    for field, ops, w in (("fr", fr, 4 * n), ("fq", fq, 32 * n)):
+    # K1: fr at the quotient's 4n width, fq at the msm3 window tables' 16n.
+    for field, ops, w in (("fr", fr, 4 * n), ("fq", fq, 16 * n)):
         a = _lazy(torch, np, rng, ops, w)
         b = _lazy(torch, np, rng, ops, w)
         b[:, :3] = b[:, 2:3]
@@ -168,7 +266,7 @@ def check_kernels(torch, np) -> list[dict]:
             plain=lambda f=field, a=a, b=b: CM.mont_mul_plain(f, a, b),
             nbytes=3 * 64 * w, nmont=w,
         ))
-    # K2: one Stockham stage of the 4n coset NTT over the 15-polynomial stack.
+    # K2: one four-step stage of the 4n coset NTT over the 15-polynomial stack.
     w = 15 * 2 * n
     c0, c1, tw = (_lazy(torch, np, rng, fr, w) for _ in range(3))
     cases.append(dict(
@@ -177,50 +275,119 @@ def check_kernels(torch, np) -> list[dict]:
         plain=lambda: CM.dif_butterfly_plain(c0, c1, tw),
         nbytes=5 * 64 * w, nmont=w,
     ))
-    # K5: first level of the chunk fold, NB * C / 2 points.
-    w = msm2.NB * chunks // 2
-    pa, pb = _points(torch, np, rng, w)
+    # K3: the commit run-scan, S = 32 steps x C = 2^17 lanes, one launch.
+    steps, lanes, _, t_ends, _ = msm3.plan_params(16 * n)
+    acc3, pts3, mask3 = _inc_case(torch, np, rng, "madd", steps, lanes, [0, 1, 2, 3])
     cases.append(dict(
-        kernel="K5", name="K5 jadd_stacked", width=w,
-        run=lambda: msm2.jadd_stacked(pa, pb),
-        plain=lambda: msm2.jadd_stacked_plain(pa, pb),
-        nbytes=3 * 192 * w, nmont=MONT_PER_JADD * w,
+        kernel="K3", name="K3 madd_packed (run-scan)", width=steps * lanes,
+        run=lambda: msm3._inc_scan("madd", acc3, pts3, mask3),
+        plain=lambda: _plain_scan(torch, msm3.madd_packed_plain, acc3, pts3, mask3),
+        nbytes=(164 * steps + 96) * lanes, nmont=MONT_PER_MADD * steps * lanes,
+        after=_check_k3_decodes,
     ))
-    # K6: the commit run-scan, S steps x C chunks of sorted digits.
-    dig = np.sort(rng.integers(0, msm2.NB, size=(chunks, steps)), axis=1)
+    # K4: the merge scan (16 steps x T/16 lanes, bit 0 only) and one dense-
+    # bucket round (2^15 lanes, fresh / live / dead).  A dead lane does no
+    # products.
+    w4 = t_ends // 16
+    acc4, pts4, mask4 = _inc_case(torch, np, rng, "jadd", 16, w4, [0, 0, 0, 1])
+    live = int(((mask4 & 4) == 0).sum())
+    cases.append(dict(
+        kernel="K4", name="K4 jadd_packed (merge scan)", width=16 * w4,
+        run=lambda: msm3._inc_scan("jadd", acc4, pts4, mask4),
+        plain=lambda: _plain_scan(torch, msm3.jadd_packed_plain, acc4, pts4, mask4),
+        nbytes=(196 * 16 + 96) * w4, nmont=MONT_PER_JADD * live,
+    ))
+    accd, ptsd, maskd = _inc_case(torch, np, rng, "jadd", 1, msm3._NB2, [0, 1, 4])
+    live = int(((maskd & 4) == 0).sum())
+    cases.append(dict(
+        kernel="K4", name="K4 jadd_packed (dense buckets)", width=msm3._NB2,
+        run=lambda: msm3.jadd_packed(accd, ptsd[0], maskd[0]),
+        plain=lambda: msm3.jadd_packed_plain(accd, ptsd[0], maskd[0]),
+        nbytes=(196 + 96) * msm3._NB2, nmont=MONT_PER_JADD * live,
+    ))
+    # K5: the widest level of msm3's Blelloch bucket fold (2^15 points), and
+    # the widest level of the msm2 fallback's chunk fold (NB * C / 2).
+    k_msm = 32 * n  # the fallback commit's digit count: 32 windows x m = n
+    chunks = msm2._choose_chunks(k_msm)
+    for label, w in (("msm3 Blelloch fold", msm3._NB2),
+                     ("msm2 chunk fold", msm2.NB * chunks // 2)):
+        pa, pb = _points(torch, np, rng, w)
+        cases.append(dict(
+            kernel="K5", name=f"K5 jadd_stacked ({label})", width=w,
+            run=lambda pa=pa, pb=pb: msm2.jadd_stacked(pa, pb),
+            plain=lambda pa=pa, pb=pb: msm2.jadd_stacked_plain(pa, pb),
+            nbytes=3 * 192 * w, nmont=MONT_PER_JADD * w,
+        ))
+    # K6: the msm2 run-scan of the m = 2^18 fallback commit, S steps x C
+    # chunks of sorted digits.  Its plain version loops the S steps on the
+    # card in seconds: it is run once, compared and timed in that one call.
+    steps6 = k_msm // chunks
+    dig = np.sort(rng.integers(0, msm2.NB, size=(chunks, steps6)), axis=1)
     dig[0] = 7  # one long run: the same base twice -> doubling branch
     prev = np.concatenate([dig[:, :1], dig[:, :-1]], axis=1)
     d_t = torch.from_numpy(np.ascontiguousarray(dig.T, dtype=np.int32)).to("cuda")
     p_t = torch.from_numpy(np.ascontiguousarray(prev.T, dtype=np.int32)).to("cuda")
-    pts = torch.stack([_lazy(torch, np, rng, fq, chunks, edges=False) for _ in range(2 * steps)])
-    pts = pts.reshape(steps, 32, chunks)
-    pts[:, :, 0] = _real_point(torch)[0][:32, 0]  # chunk 0: P, P, P, ...
+    pts = torch.stack([_lazy(torch, np, rng, fq, chunks, edges=False) for _ in range(2 * steps6)])
+    pts = pts.reshape(steps6, 32, chunks)
+    pts[:, :, 0] = _real_point(torch, 0xC0FFEE)[0][:32, 0]  # chunk 0: P, P, P, ...
     cases.append(dict(
-        kernel="K6", name="K6 run_scan", width=steps * chunks,
+        kernel="K6", name="K6 run_scan", width=steps6 * chunks,
         run=lambda: msm2.run_scan(d_t, p_t, pts),
         plain=lambda: msm2.run_scan_plain(d_t, p_t, pts),
-        nbytes=(8 + 128 + 192) * steps * chunks, nmont=MONT_PER_MADD * steps * chunks,
+        nbytes=(8 + 128 + 192) * steps6 * chunks, nmont=MONT_PER_MADD * steps6 * chunks,
+        plain_once=True,
     ))
-    # K7: one window step of the table build: 8 doublings of n points.
+    # K7: one window step of a table build over n points: 16 doublings for
+    # the msm3 tables, 8 for the msm2 tables the fallback builds.
     w = n
-    pd = tuple(pa[16 * i : 16 * (i + 1), :w] for i in range(3))
+    p7a, _ = _points(torch, np, rng, w)
+    pd = tuple(p7a[16 * i : 16 * (i + 1)] for i in range(3))
+    for label, nd in (("msm3 tables", msm3.WBITS), ("msm2 tables", msm2.WINDOW_BITS)):
+        cases.append(dict(
+            kernel="K7", name=f"K7 jac_double_n ({label}, {nd} doublings)", width=w,
+            run=lambda nd=nd: CM.jac_double_n(pd, nd),
+            plain=lambda nd=nd: CM.jac_double_n_plain(pd, nd),
+            nbytes=2 * 192 * w, nmont=nd * MONT_PER_DOUBLE * w,
+        ))
+    # K8a, K8b, K9: no path calls them; one representative width.
+    w = 1 << 20
+    qa, qb = _points(torch, np, rng, w)
+    ca = tuple(qa[16 * i : 16 * (i + 1)] for i in range(3))
+    cb = tuple(qb[16 * i : 16 * (i + 1)] for i in range(3))
     cases.append(dict(
-        kernel="K7", name="K7 jac_double_n", width=w,
-        run=lambda: CM.jac_double_n(pd, 8),
-        plain=lambda: CM.jac_double_n_plain(pd, 8),
-        nbytes=2 * 192 * w, nmont=8 * MONT_PER_DOUBLE * w,
+        kernel="K8a", name="K8a jac_add", width=w,
+        run=lambda: CM.jac_add(ca, cb), plain=lambda: CM.jac_add_plain(ca, cb),
+        nbytes=3 * 192 * w, nmont=MONT_PER_JADD * w,
+    ))
+    cases.append(dict(
+        kernel="K8b", name="K8b jac_madd", width=w,
+        run=lambda: CM.jac_madd(ca, cb[:2]), plain=lambda: CM.jac_madd_plain(ca, cb[:2]),
+        nbytes=(192 + 128 + 192) * w, nmont=MONT_PER_MADD * w,
+    ))
+    e9, o9, t9 = (_lazy(torch, np, rng, fr, w) for _ in range(3))
+    cases.append(dict(
+        kernel="K9", name="K9 butterfly", width=w,
+        run=lambda: CM.butterfly(e9, o9, t9), plain=lambda: CM.butterfly_plain(e9, o9, t9),
+        nbytes=5 * 64 * w, nmont=w,
     ))
 
     records = []
     for c in cases:
         got = c["run"]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = c["plain"]()
         torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
         err = _max_err(torch, got, want)
         if err != 0:
             fail(f"{c['name']} differs from its plain version (max abs err {err})")
+        if "after" in c:
+            c["after"](torch, got)
+        del want
         ms = _timed(torch, c["run"], reps)
-        plain_ms = _timed(torch, c["plain"], 1)
+        if not c.get("plain_once"):
+            plain_ms = _timed(torch, c["plain"], 1)
         bound_ms, bound_by = _bound(c["nbytes"], c["nmont"])
         src, replaces = SOURCES[c["kernel"].split()[0]]
         records.append(dict(
@@ -234,7 +401,7 @@ def check_kernels(torch, np) -> list[dict]:
               f"{err}, tolerance 0: integer arithmetic); kernel "
               f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by})", flush=True)
-        del got, want
+        del got
     return records
 
 
@@ -316,7 +483,7 @@ def device_breakdown(torch, fn, top: int = 8) -> dict:
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        m = re.search(r"k\d_kernel", evt.name)
+        m = re.search(r"k\d[ab]?_kernel", evt.name)
         name = m.group(0) if m else "torch:" + evt.name.split("<")[0].split("(")[0][-40:]
         by_name[name] = by_name.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3
     total = sum(by_name.values())
@@ -330,14 +497,100 @@ def device_breakdown(torch, fn, top: int = 8) -> dict:
 
 
 def launches_since_reset(torch, cuda_lib, phase: str) -> dict:
-    """The launch counts since the last reset; fails unless every kernel of
-    the path was launched."""
+    """The launch counts since the last reset; fails unless every kernel
+    that REQUIRED names for this phase's path was launched."""
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in REQUIRED[phase] if launches[k] == 0]
     if missing:
-        fail(f"{phase}: kernels never launched on the main path: {missing}")
+        fail(f"{phase}: kernels never launched on its path: {missing}")
     return launches
+
+
+def synthetic_phase(ptt, torch, cuda_lib, n: int, phase: str, tag: str, profiled: bool):
+    """Setup.generate(n) -> mul-chain -> prove -> verify, then a warm proof
+    with its per-round times; returns (setup, launches over the path)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    setup = ptt.Setup.generate(n, tau=TAU)
+    t_setup = time.perf_counter() - t0
+    prover, witness, cold = chain_proof(ptt, setup, n)
+    launches = launches_since_reset(torch, cuda_lib, phase)
+    peak = torch.cuda.max_memory_allocated()
+    prover.timings = type(prover.timings)(prover.device)
+    t0 = time.perf_counter()
+    prover.prove(dict(witness))
+    warm = time.perf_counter() - t0
+    rounds = {k: round(v * 1e3, 1) for k, v in prover.timings.sections.items()}
+    print(f"{tag} mul-chain n = {n} on Setup.generate: verified; "
+          f"setup {t_setup:.2f} s, cold prove {cold:.3f} s (window tables "
+          f"included), warm prove {warm:.3f} s, warm rounds ms {json.dumps(rounds)}, "
+          f"launches {json.dumps(launches)}, peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if profiled:
+        breakdown = device_breakdown(torch, lambda: prover.prove(dict(witness)))
+        print(f"{tag} profiled warm prove: {json.dumps(breakdown)}", flush=True)
+    return setup, launches
+
+
+def msm_oracle_phase(torch, np, cuda_lib, setup, m: int):
+    """msm3 commits at size m against p(tau) * G, on `setup`'s engine."""
+    from plonkathon_tpu_torch.ec import G1, pt_mul
+    from plonkathon_tpu_torch.fields import FR_MOD
+    from plonkathon_tpu_torch.ops import msm3
+    from plonkathon_tpu_torch.ops.limbs import fr, to_device
+
+    eng = setup.msm_engine
+    rng = np.random.default_rng(20260818)
+    coeffs = [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(m)]
+    coeffs[0], coeffs[1] = 0, FR_MOD - 1
+    acc = 0
+    for c in reversed(coeffs):  # Horner: p(tau)
+        acc = (acc * TAU + c) % FR_MOD
+    want_random = pt_mul(G1, acc)
+    # All coefficients equal: each window's digit fills one bucket with
+    # thousands of run ends, far more than the dense stage folds.
+    c = int.from_bytes(rng.bytes(32), "little") % FR_MOD
+    geometric = (pow(TAU, m, FR_MOD) - 1) * pow(TAU - 1, -1, FR_MOD) % FR_MOD
+    want_equal = pt_mul(G1, c * geometric % FR_MOD)
+    random_dev = to_device(fr.to_mont_host_many(coeffs), eng.device)
+    equal_dev = to_device(fr.to_mont_host_many([c] * m), eng.device)
+
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    got = eng.commit_mont(random_dev)
+    launches = launches_since_reset(torch, cuda_lib, "msm3-oracle")
+    wall = time.perf_counter() - t0
+    if got != want_random:
+        fail(f"msm3 commit of {m} random coefficients differs from p(tau) * G")
+    if launches["K6"] != 0:
+        fail("a commit within msm3's multiplicity bound launched the msm2 scan")
+    print(f"[8] msm3 commit, m = {m}, random coefficients (0 and r - 1 among them): "
+          f"equals p(tau) * G; {wall * 1e3:.1f} ms; launches {json.dumps(launches)}",
+          flush=True)
+
+    cuda_lib.reset_launches()
+    _, maxmult = eng.msm_mont_deferred(equal_dev)
+    maxmult = int(maxmult)
+    if maxmult <= msm3._J:
+        fail(f"the crafted commit did not overflow: maxmult {maxmult}")
+    got = eng.commit_mont(equal_dev)
+    launches = launches_since_reset(torch, cuda_lib, "msm3-overflow")
+    if got != want_equal:
+        fail("the overflow commit (msm2 fallback) differs from its oracle")
+    print(f"[8] msm3 overflow, m = {m}, all coefficients equal: maxmult {maxmult} > "
+          f"{msm3._J}, recommitted through msm2, equals c * (tau^m - 1)/(tau - 1) * G; "
+          f"launches {json.dumps(launches)}", flush=True)
+
+    cuda_lib.reset_launches()
+    got = eng.commit_batch([random_dev, equal_dev])
+    launches = launches_since_reset(torch, cuda_lib, "msm3-overflow")
+    if got != [want_random, want_equal]:
+        fail("commit_batch of a normal and an overflowing polynomial differs")
+    print(f"[8] commit_batch [random, overflow]: both equal their oracles; "
+          f"launches {json.dumps(launches)}", flush=True)
 
 
 def main():
@@ -374,7 +627,10 @@ def main():
     print(cuda_lib.build_log().rstrip(), flush=True)
 
     # 3. kernels against plain versions
+    cuda_lib.reset_launches()
     records = check_kernels(torch, np)
+    launches = launches_since_reset(torch, cuda_lib, "kernels")
+    print(f"[3] launches of the comparisons {json.dumps(launches)}", flush=True)
 
     # 4. fixture proof, vkeys, golden commitment
     cuda_lib.reset_launches()
@@ -382,37 +638,28 @@ def main():
     launches = launches_since_reset(torch, cuda_lib, "fixture")
     print(f"[4] fixture launches {json.dumps(launches)}", flush=True)
 
-    # 5. mul-chain at n = 2^11 on the ceremony SRS
+    # 5. mul-chain at n = 2^11 on the ceremony SRS (msm2 + Stockham)
     cuda_lib.reset_launches()
     setup11 = ptt.Setup.from_file(PTAU)
     _, _, wall11 = chain_proof(ptt, setup11, CHAIN_N)
-    launches = launches_since_reset(torch, cuda_lib, f"n = {CHAIN_N}")
+    launches = launches_since_reset(torch, cuda_lib, "chain-2^11")
+    if launches["K3"] or launches["K4"]:
+        fail(f"n = {CHAIN_N} took the msm3 route: {launches}")
     print(f"[5] mul-chain n = {CHAIN_N} on the ceremony SRS: verified; "
           f"cold prove {wall11:.3f} s, launches {json.dumps(launches)}", flush=True)
     del setup11
 
-    # 6. headline: mul-chain at n = 2^16 on a synthetic SRS
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cuda_lib.reset_launches()
-    t0 = time.perf_counter()
-    setup = ptt.Setup.generate(HEADLINE_N)
-    t_setup = time.perf_counter() - t0
-    prover, witness, cold = chain_proof(ptt, setup, HEADLINE_N)
-    launches = launches_since_reset(torch, cuda_lib, f"n = {HEADLINE_N}")
-    peak = torch.cuda.max_memory_allocated()
-    prover.timings = type(prover.timings)(prover.device)
-    t0 = time.perf_counter()
-    prover.prove(dict(witness))
-    warm = time.perf_counter() - t0
-    rounds = {k: round(v * 1e3, 1) for k, v in prover.timings.sections.items()}
-    breakdown = device_breakdown(torch, lambda: prover.prove(dict(witness)))
-    print(f"[6] mul-chain n = {HEADLINE_N} on Setup.generate: verified; "
-          f"setup {t_setup:.2f} s, cold prove {cold:.3f} s (window tables "
-          f"included), warm prove {warm:.3f} s, warm rounds ms {json.dumps(rounds)}, "
-          f"launches {json.dumps(launches)}, peak device memory "
-          f"{peak / 2**30:.2f} GiB", flush=True)
-    print(f"[6] profiled warm prove: {json.dumps(breakdown)}", flush=True)
+    # 6. mul-chain at n = 2^16 on a synthetic SRS (msm3 + four-step)
+    synthetic_phase(ptt, torch, cuda_lib, MID_N, "chain-2^16", "[6]", profiled=False)
+    torch.cuda.empty_cache()
+
+    # 7. headline: mul-chain at n = 2^18 on a synthetic SRS
+    setup, launches = synthetic_phase(
+        ptt, torch, cuda_lib, HEADLINE_N, "chain-2^18", "[7]", profiled=True
+    )
+
+    # 8. msm3 against the exact oracle, on the headline setup's engine
+    msm_oracle_phase(torch, np, cuda_lib, setup, HEADLINE_N)
 
     for r in records:
         r["launches"] = launches[r["kernel"]]

@@ -1,0 +1,94 @@
+// Packed-row loads and the incomplete G1 adds of the msm3 kernels (K3,
+// K4).  Op for op the formulas of msm3._kern_madd_inc and _kern_jadd_inc,
+// so every output is the same raw words as the TPU kernels and the plain
+// torch versions.
+#pragma once
+#include "g1.cuh"
+
+// Packed layout of the msm3 pipeline: one 32-bit word holds two 16-bit
+// limbs, low limb in the low half, i.e. row k of a packed coordinate IS
+// word k of an Fe.  A packed Jacobian point is 24 rows (X, Y, Z), a packed
+// affine point 16 rows (x, y).
+__device__ __forceinline__ Fe fe_load_packed(const int32_t* base,
+                                             long long stride, long long idx) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r.w[k] = (uint32_t)base[k * stride + idx];
+  return r;
+}
+
+__device__ __forceinline__ void fe_store_packed(int32_t* base, long long stride,
+                                                long long idx, const Fe& a) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) base[k * stride + idx] = (int32_t)a.w[k];
+}
+
+__device__ __forceinline__ Jac jac_load_packed(const int32_t* base, long long w,
+                                               long long i) {
+  Jac p;
+  p.x = fe_load_packed(base, w, i);
+  p.y = fe_load_packed(base + 8 * w, w, i);
+  p.z = fe_load_packed(base + 16 * w, w, i);
+  return p;
+}
+
+__device__ __forceinline__ void jac_store_packed(int32_t* base, long long w,
+                                                 long long i, const Jac& p) {
+  fe_store_packed(base, w, i, p.x);
+  fe_store_packed(base + 8 * w, w, i, p.y);
+  fe_store_packed(base + 16 * w, w, i, p.z);
+}
+
+// msm3._kern_madd_inc: INCOMPLETE Jacobian + affine, 11 products, no
+// identity, doubling or cancellation branch; a fresh lane restarts at
+// (x2, y2, 1).  Only valid where p is not the identity and p != +-q; the
+// msm3 pipeline (ops/msm3.py) says why its live lanes satisfy that and
+// why the other lanes' garbage is never read.
+// Not inlined: with either incomplete add inlined into its kernel's step
+// loop, nvcc 12.8 had not finished compiling the source after 330 s on
+// the H100 host; as a call it takes 21 s.
+static __device__ __noinline__ Jac jac_madd_inc(const Jac& p, const Fe& x2,
+                                            const Fe& y2, bool fresh,
+                                            const FieldConst& c) {
+  Fe Z1Z1 = fe_mul(p.z, p.z, c);
+  Fe U2 = fe_mul(x2, Z1Z1, c);
+  Fe S2 = fe_mul(y2, fe_mul(p.z, Z1Z1, c), c);
+  Fe H = fe_sub(U2, p.x, c);
+  Fe R = fe_sub(S2, p.y, c);
+  Fe HH = fe_mul(H, H, c);
+  Fe HHH = fe_mul(H, HH, c);
+  Fe V = fe_mul(p.x, HH, c);
+  Jac r;
+  r.x = fe_sub(fe_sub(fe_mul(R, R, c), HHH, c), fe_add(V, V, c), c);
+  r.y = fe_sub(fe_mul(R, fe_sub(V, r.x, c), c), fe_mul(p.y, HHH, c), c);
+  r.z = fe_mul(p.z, H, c);
+  if (fresh) {
+    r.x = x2;
+    r.y = y2;
+    r.z = fe_const(c.one);
+  }
+  return r;
+}
+
+// msm3._kern_jadd_inc: INCOMPLETE Jacobian + Jacobian, 16 products (4 of
+// them squarings); a fresh lane restarts at q.
+static __device__ __noinline__ Jac jac_add_inc(const Jac& p, const Jac& q,
+                                           bool fresh, const FieldConst& c) {
+  Fe Z1Z1 = fe_mul(p.z, p.z, c);
+  Fe Z2Z2 = fe_mul(q.z, q.z, c);
+  Fe U1 = fe_mul(p.x, Z2Z2, c);
+  Fe U2 = fe_mul(q.x, Z1Z1, c);
+  Fe S1 = fe_mul(p.y, fe_mul(q.z, Z2Z2, c), c);
+  Fe S2 = fe_mul(q.y, fe_mul(p.z, Z1Z1, c), c);
+  Fe H = fe_sub(U2, U1, c);
+  Fe R = fe_sub(S2, S1, c);
+  Fe HH = fe_mul(H, H, c);
+  Fe HHH = fe_mul(H, HH, c);
+  Fe V = fe_mul(U1, HH, c);
+  Jac r;
+  r.x = fe_sub(fe_sub(fe_mul(R, R, c), HHH, c), fe_add(V, V, c), c);
+  r.y = fe_sub(fe_mul(R, fe_sub(V, r.x, c), c), fe_mul(S1, HHH, c), c);
+  r.z = fe_mul(fe_mul(p.z, q.z, c), H, c);
+  if (fresh) r = q;
+  return r;
+}

@@ -1,8 +1,9 @@
 // Elementwise field and point kernels: K1 mont_mul, K2 dif_butterfly,
-// K7 jac_double_n.  Plain C entry points for ctypes; each launches on the
-// caller's stream, allocates nothing, and returns cudaGetLastError().
+// K7 jac_double_n, K8a jac_add, K8b jac_madd, K9 butterfly.  Plain C entry
+// points for ctypes; each launches on the caller's stream, allocates
+// nothing, and returns cudaGetLastError().
 //
-// Design, shared by all three: one thread per element, 16-bit limbs
+// Design, shared by all: one thread per element, 16-bit limbs
 // repacked into 8 x 32-bit words at load (ops/limbs.py wire format, limb-
 // major so each limb row is one coalesced load), CIOS Montgomery product
 // with 64-bit partial products (field.cuh).
@@ -46,11 +47,11 @@ k2_kernel(const int32_t* __restrict__ c0, const int32_t* __restrict__ c1,
 }
 
 // K7.  Replaces ops/pallas_mont.py:_jac_double_kernel (jac_double_n).
-// Bound: operations -- 7 Montgomery products per doubling, 8 doublings per
-// window step, against 384 bytes moved per point.  Design: the TPU
-// launches one kernel per doubling; here one launch loops n_times with the
-// point in registers, so the stacked [48, W] array is read and written
-// once.
+// Bound: operations -- 7 Montgomery products per doubling, 8 (msm2) or 16
+// (msm3) doublings per window step, against 384 bytes moved per point.
+// Design: the TPU launches one kernel per doubling; here one launch loops
+// n_times with the point in registers, so the stacked [48, W] array is
+// read and written once.
 __global__ void __launch_bounds__(kThreads)
 k7_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
           long long w, int n_times, FieldConst c) {
@@ -59,6 +60,48 @@ k7_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
   Jac p = jac_load(in, w, i);
   for (int k = 0; k < n_times; ++k) p = jac_double(p, c);
   jac_store(out, w, i, p);
+}
+
+// K8a.  Replaces ops/pallas_mont.py:_jac_add_kernel (jac_add): complete
+// Jacobian + Jacobian on stacked [48, W] triples (_kern_add).  Bound:
+// operations -- 16 Montgomery products per 576 bytes moved.  Design: the
+// device function K5 uses, one thread per point.
+constexpr int kPointThreads = 128;
+
+__global__ void __launch_bounds__(kPointThreads)
+k8a_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+           int32_t* __restrict__ o, long long w, FieldConst c) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= w) return;
+  jac_store(o, w, i, jac_add(jac_load(a, w, i), jac_load(b, w, i), c));
+}
+
+// K8b.  Replaces ops/pallas_mont.py:_jac_madd_kernel (jac_madd): complete
+// Jacobian [48, W] + affine [32, W] (_kern_madd; q never the identity).
+// Bound: operations -- 11 Montgomery products per 512 bytes moved.
+__global__ void __launch_bounds__(kPointThreads)
+k8b_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ q,
+           int32_t* __restrict__ o, long long w, FieldConst c) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= w) return;
+  Fe x2 = fe_load(q, w, i);
+  Fe y2 = fe_load(q + 16 * w, w, i);
+  jac_store(o, w, i, jac_madd(jac_load(a, w, i), x2, y2, c));
+}
+
+// K9.  Replaces ops/pallas_mont.py:_butterfly_kernel (butterfly): the
+// decimation-in-time butterfly (e, o, t) -> (e + o*t, e - o*t) in Fr.
+// Bound: bytes, like K2 (one Montgomery product per 320 bytes moved).
+__global__ void __launch_bounds__(kThreads)
+k9_kernel(const int32_t* __restrict__ e, const int32_t* __restrict__ o,
+          const int32_t* __restrict__ t, int32_t* __restrict__ lo,
+          int32_t* __restrict__ hi, long long w, FieldConst c) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= w) return;
+  Fe x = fe_load(e, w, i);
+  Fe prod = fe_mul(fe_load(o, w, i), fe_load(t, w, i), c);
+  fe_store(lo, w, i, fe_add(x, prod, c));
+  fe_store(hi, w, i, fe_sub(x, prod, c));
 }
 
 }  // namespace
@@ -87,5 +130,33 @@ extern "C" int k7_jac_double_n(const void* in, void* out, long long w,
   if (w <= 0) return 0;
   k7_kernel<<<blocks_for(w, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, (int32_t*)out, w, n_times, unpack_const(consts));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k8a_jac_add(const void* a, const void* b, void* out, long long w,
+                           const void* consts, void* stream) {
+  if (w <= 0) return 0;
+  k8a_kernel<<<blocks_for(w, kPointThreads), kPointThreads, 0,
+               (cudaStream_t)stream>>>((const int32_t*)a, (const int32_t*)b,
+                                       (int32_t*)out, w, unpack_const(consts));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k8b_jac_madd(const void* a, const void* q, void* out, long long w,
+                            const void* consts, void* stream) {
+  if (w <= 0) return 0;
+  k8b_kernel<<<blocks_for(w, kPointThreads), kPointThreads, 0,
+               (cudaStream_t)stream>>>((const int32_t*)a, (const int32_t*)q,
+                                       (int32_t*)out, w, unpack_const(consts));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k9_butterfly(const void* e, const void* o, const void* t,
+                            void* lo, void* hi, long long w, const void* consts,
+                            void* stream) {
+  if (w <= 0) return 0;
+  k9_kernel<<<blocks_for(w, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)e, (const int32_t*)o, (const int32_t*)t, (int32_t*)lo,
+      (int32_t*)hi, w, unpack_const(consts));
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """Build and load the hand-written Hopper kernels (`plonkathon_tpu_torch/csrc`).
 
-Both `csrc/*.cu` sources are compiled by one `nvcc` call into one shared
+The `csrc/*.cu` sources are compiled by one `nvcc` call into one shared
 library with a plain C interface (`-gencode arch=compute_90a,code=sm_90a`),
 loaded with ctypes.  The library goes into the package's ignored `_build/`
 directory under a name keyed by a hash of every source and header plus the
@@ -25,9 +25,9 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("mont.cu", "msm.cu")
+SOURCES = ("mont.cu", "msm.cu", "msm3.cu")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--threads", "0",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
@@ -41,15 +41,23 @@ SIGNATURES = {
     "k7_jac_double_n": [_P, _P, _I64, _I32, _P, _P],
     "k5_jadd_stacked": [_P, _P, _P, _I64, _P, _P],
     "k6_run_scan": [_P, _P, _P, _P, _I64, _I64, _P, _P],
+    "k3_madd_packed": [_P, _P, _P, _P, _I64, _I64, _P, _P],
+    "k4_jadd_packed": [_P, _P, _P, _P, _I64, _I64, _P, _P],
+    "k8a_jac_add": [_P, _P, _P, _I64, _P, _P],
+    "k8b_jac_madd": [_P, _P, _P, _I64, _P, _P],
+    "k9_butterfly": [_P, _P, _P, _P, _P, _I64, _P, _P],
 }
 
 _lock = threading.Lock()
 _lib = None
 
-# Launch counts by kernel id (K1 per field, K2, K5, K6, K7).  A wrapper
-# adds one where it launches its kernel and nowhere else, so a run can show
-# which kernels its path went through.
-LAUNCHES = {k: 0 for k in ("K1 fr", "K1 fq", "K2", "K5", "K6", "K7")}
+# Launch counts by kernel id (K1 per field).  A wrapper adds one where it
+# launches its kernel and nowhere else, so a run can show which kernels its
+# path went through.
+LAUNCHES = {
+    k: 0
+    for k in ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K6", "K7", "K8a", "K8b", "K9")
+}
 
 
 def count_launch(kernel: str) -> None:

@@ -1,11 +1,14 @@
 """Field and point kernels: wrappers, launch counts and plain versions.
 
-Counterpart of the JAX package's `ops/pallas_mont.py`.  Three kernels live
+Counterpart of the JAX package's `ops/pallas_mont.py`.  Six kernels live
 here (CUDA C++ in `csrc/mont.cu`, over `csrc/field.cuh` and `csrc/g1.cuh`):
 
 * K1 `mont_mul`     — elementwise Montgomery product in Fr or Fq;
 * K2 `dif_butterfly` — one Stockham DIF stage (c0 + c1, (c0 - c1) * tw);
-* K7 `jac_double_n` — n repeated Jacobian doublings over Fq.
+* K7 `jac_double_n` — n repeated Jacobian doublings over Fq;
+* K8a `jac_add`     — complete Jacobian add on coordinate triples;
+* K8b `jac_madd`    — complete Jacobian + affine add;
+* K9 `butterfly`    — the DIT butterfly (e + o * t, e - o * t) in Fr.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 the plain torch version only for CPU tensors; there is no fallback from
@@ -248,3 +251,81 @@ def jac_double_n(p, n_times: int = 1):
     count_launch("K7")
     check(rc, "k7_jac_double_n")
     return unstack_points(out, shape_tail)
+
+
+# ---------------------------------------------------------------------------
+# K8a / K8b: complete adds on coordinate triples.
+# ---------------------------------------------------------------------------
+
+def jac_add_plain(p, q):
+    arrs = torch.broadcast_tensors(*p, *q)
+    return _kern_add(fq_plain, arrs[:3], arrs[3:])
+
+
+def jac_madd_plain(p, q_aff):
+    arrs = torch.broadcast_tensors(*p, *q_aff)
+    return _kern_madd(fq_plain, arrs[:3], arrs[3:])
+
+
+def _point_launch(kernel: str, entry: str, arrs, nq: int):
+    """Stack the broadcast coordinates of p (3) and q (nq), launch, unstack."""
+    shape_tail = arrs[0].shape[1:]
+    w = _width(arrs[0])
+    (a,) = check_limbs(3 * NLIMBS, stack_points(arrs[:3], w))
+    (b,) = check_limbs(nq * NLIMBS, stack_points(arrs[3:], w))
+    if a.device != b.device:
+        raise ValueError("kernel operands must all be on one CUDA device")
+    out = torch.empty_like(a)
+    rc = fn(entry)(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), w, field_consts("fq"),
+        stream_ptr(a.device),
+    )
+    count_launch(kernel)
+    check(rc, entry)
+    return unstack_points(out, shape_tail)
+
+
+def jac_add(p, q):
+    """Complete Jacobian add on [16, *batch] coordinate triples
+    (broadcasting); identity, p == q and p == -q handled."""
+    arrs = torch.broadcast_tensors(*p, *q)
+    if not any(x.is_cuda for x in arrs):
+        return jac_add_plain(p, q)
+    return _point_launch("K8a", "k8a_jac_add", arrs, 3)
+
+
+def jac_madd(p, q_aff):
+    """Complete Jacobian + affine add; q_aff = (x, y) Montgomery limbs, never
+    the identity."""
+    arrs = torch.broadcast_tensors(*p, *q_aff)
+    if not any(x.is_cuda for x in arrs):
+        return jac_madd_plain(p, q_aff)
+    return _point_launch("K8b", "k8b_jac_madd", arrs, 2)
+
+
+# ---------------------------------------------------------------------------
+# K9: DIT butterfly.
+# ---------------------------------------------------------------------------
+
+def butterfly_plain(even, odd, tw):
+    even, odd, tw = torch.broadcast_tensors(even, odd, tw)
+    k = fr_plain
+    prod = k.mul(odd, tw)
+    return k.add(even, prod), k.sub(even, prod)
+
+
+def butterfly(even, odd, tw):
+    """(e, o, t) -> (e + o * t, e - o * t) in Fr over [16, *batch]
+    (tw broadcastable)."""
+    if not (even.is_cuda or odd.is_cuda or tw.is_cuda):
+        return butterfly_plain(even, odd, tw)
+    even, odd, tw = check_limbs(NLIMBS, *torch.broadcast_tensors(even, odd, tw))
+    lo = torch.empty_like(even)
+    hi = torch.empty_like(even)
+    rc = fn("k9_butterfly")(
+        even.data_ptr(), odd.data_ptr(), tw.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        _width(even), field_consts("fr"), stream_ptr(even.device),
+    )
+    count_launch("K9")
+    check(rc, "k9_butterfly")
+    return lo, hi

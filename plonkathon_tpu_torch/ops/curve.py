@@ -1,7 +1,10 @@
 """Batched G1 Jacobian arithmetic and the fixed-base MSM engine.
 
-Counterpart of the JAX package's `ops/curve.py`, with the affine 8-bit
-(msm2) route only: every commit goes through `ops/msm2.py` on both devices.
+Counterpart of the JAX package's `ops/curve.py`.  A commit of m >= 8192
+coefficients goes through the signed 16-bit-window pipeline (`ops/msm3.py`)
+and falls through to the 8-bit pipeline (`ops/msm2.py`) if msm3 reports a
+bucket multiplicity above what its dense stage folds; smaller commits take
+msm2 directly.  The route depends on m alone, not on the device.
 
 Points are structure-of-arrays Jacobian coordinates over Fq limb tensors
 (int32[16, *batch], Montgomery form); the identity is Z == 0.
@@ -13,8 +16,8 @@ import torch
 
 from ..fields import FQ_MOD
 from .limbs import fq, fr, NLIMBS, DTYPE, to_device
-from .cuda_mont import _kern_add, _kern_double
-from . import msm2
+from .cuda_mont import _kern_double
+from . import cuda_mont, msm2, msm3
 
 WINDOW_BITS = msm2.WINDOW_BITS
 NWINDOWS = msm2.NWINDOWS
@@ -24,7 +27,7 @@ NWINDOWS = msm2.NWINDOWS
 # Jacobian point ops (X, Y, Z limb-major tuples; Montgomery domain).
 # ---------------------------------------------------------------------------
 
-def jac_identity(batch_shape=(), device="cpu"):
+def jac_identity(batch_shape, device):
     zero = torch.zeros((NLIMBS,) + tuple(batch_shape), dtype=DTYPE, device=device)
     one = fq.full("ONE_MONT", zero)
     return (one, one, zero)
@@ -36,8 +39,9 @@ def jac_double(p):
 
 
 def jac_add(p, q):
-    """Complete Jacobian addition (handles identity, equal, and inverse pairs)."""
-    return _kern_add(fq, p, q)
+    """Complete Jacobian addition (handles identity, equal, and inverse
+    pairs): the K8a kernel on CUDA tensors, the plain formula on CPU ones."""
+    return cuda_mont.jac_add(p, q)
 
 
 def jac_fold_sum(p):
@@ -102,27 +106,43 @@ def _coeff_digits(coeffs_mont):
 class FixedBaseMSM:
     """Fixed-base MSM context over the SRS G1 powers (the KZG commit engine).
 
-    Builds affine 8-bit window tables on the device and commits through the
-    msm2 pipeline (`ops/msm2.py`).  Tables cover the first `_tab_n` bases,
-    a power of two grown on demand up to the SRS size, so a small circuit on
-    a large SRS does not pay for the whole table.
+    Builds affine window tables on the device, packed 16-bit ones for the
+    msm3 pipeline and 8-bit ones for msm2, each at first use.  Tables cover
+    the first `need` bases, a power of two grown on demand up to the SRS
+    size, so a small circuit on a large SRS does not pay for the whole
+    table.
     """
+
+    _MSM3_MIN = 8192  # smallest m routed to the 16-bit-window pipeline
 
     def __init__(self, points, device="cuda"):
         """points: list of host affine G1 points (the SRS powers of x)."""
         self.n = len(points)
         self._points = points
         self.device = torch.device(device)
-        self.affine_tab = None
+        self.affine_tab = None    # 8-bit affine tables (msm2)
         self._tab_n = 0
+        self.affine16_tab = None  # packed 16-bit tables (msm3)
+        self._tab16_n = 0
+
+    def _need(self, m: int) -> int:
+        return min(self.n, 1 << max(m - 1, 0).bit_length())
 
     def _build_affine(self, m: int):
-        need = min(self.n, 1 << max(m - 1, 0).bit_length())
+        need = self._need(m)
         if self._tab_n >= need:
             return
         x, y = points_to_device(self._points[:need], self.device)
         self.affine_tab = msm2.build_affine_tables(x, y)
         self._tab_n = need
+
+    def _build_affine16(self, m: int):
+        need = self._need(m)
+        if self._tab16_n >= need:
+            return
+        x, y = points_to_device(self._points[:need], self.device)
+        self.affine16_tab = msm3.build_affine_tables16(x, y)
+        self._tab16_n = need
 
     def _tables_for(self, m: int):
         self._build_affine(m)
@@ -135,27 +155,52 @@ class FixedBaseMSM:
             tabx, taby = tabx[:, idx], taby[:, idx]
         return tabx, taby
 
-    def msm_stacked(self, coeffs_mont):
-        """MSM with Montgomery coefficients [16, m], m <= n -> [48] Jacobian
-        limbs on the device (no host synchronization)."""
+    def _digits16(self, coeffs_mont):
+        """Montgomery coefficients [16, m] -> msm3 signed keys / payloads."""
+        return msm3.signed_digits16(fr.from_mont(coeffs_mont), self._tab16_n)
+
+    def _msm2_stacked(self, coeffs_mont):
+        """MSM through the 8-bit pipeline -> [48] Jacobian limbs."""
+        tabx, taby = self._tables_for(coeffs_mont.shape[-1])
+        return msm2.msm_fixed_affine(tabx, taby, _coeff_digits(coeffs_mont))
+
+    def msm_mont_deferred(self, coeffs_mont):
+        """Device-side MSM of Montgomery coefficients [16, m], m <= n:
+        ([48] Jacobian limbs, maxmult or None), no host synchronization.
+
+        On the msm3 route the result only stands if the returned bucket
+        multiplicity (a 0-dim device tensor) is at most `msm3._J`; the
+        caller fetches it, with the result, and recommits through msm2
+        otherwise.  On the msm2 route it is None."""
         m = coeffs_mont.shape[-1]
         if m > self.n:
             raise ValueError("polynomial degree exceeds SRS size")
-        tabx, taby = self._tables_for(m)
-        return msm2.msm_fixed_affine(tabx, taby, _coeff_digits(coeffs_mont))
-
-    def msm_mont(self, coeffs_mont):
-        res = self.msm_stacked(coeffs_mont)
-        return (res[:NLIMBS], res[NLIMBS : 2 * NLIMBS], res[2 * NLIMBS :])
+        if m >= self._MSM3_MIN:
+            self._build_affine16(m)
+            key, payload = self._digits16(coeffs_mont)
+            return msm3.msm_fixed_affine16(self.affine16_tab, key, payload)
+        return self._msm2_stacked(coeffs_mont), None
 
     def commit_mont(self, coeffs_mont):
         """MSM -> host affine point (or None for the zero polynomial)."""
-        return jac_to_affine_host(self.msm_mont(coeffs_mont))
+        return self.commit_batch([coeffs_mont])[0]
 
     def commit_batch(self, coeff_list):
-        """Commit several polynomials with ONE host fetch."""
-        stack = torch.stack([self.msm_stacked(c) for c in coeff_list]).cpu()
-        return [
-            jac_to_affine_host((row[:NLIMBS], row[NLIMBS : 2 * NLIMBS], row[2 * NLIMBS :]))
-            for row in stack
-        ]
+        """Commit several polynomials with ONE host fetch: the stacked
+        results and msm3's multiplicities come back together.  A
+        multiplicity above `msm3._J` (pathological digit concentration: more
+        same-bucket runs than the dense gather folds) is rare; such a
+        polynomial is recommitted through msm2 afterwards."""
+        outs = [self.msm_mont_deferred(c) for c in coeff_list]
+        zero = torch.zeros((), dtype=DTYPE, device=self.device)
+        rows = torch.stack([
+            torch.cat([res, (zero if mm is None else mm.to(DTYPE))[None]])
+            for res, mm in outs
+        ]).cpu()
+        pts = []
+        for coeffs, row in zip(coeff_list, rows):
+            res = row[: 3 * NLIMBS]
+            if int(row[3 * NLIMBS]) > msm3._J:
+                res = self._msm2_stacked(coeffs)
+            pts.append(jac_to_affine_host(res.reshape(3, NLIMBS)))
+        return pts

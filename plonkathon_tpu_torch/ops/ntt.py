@@ -2,9 +2,11 @@
 
 Counterpart of the JAX package's `ops/ntt.py`: a constant-geometry
 Stockham DIF NTT, log2(n) butterfly stages of static halves-splits with no
-gathers and no bit reversal.  Every stage is one `dif_butterfly` call
-(`ops/cuda_mont.py`), which launches the K2 kernel on CUDA tensors and runs
-its plain version on CPU tensors, so both devices take the same stages.
+gathers and no bit reversal, for n < 2^14, and the four-step transform
+(`ops/ntt_fourstep.py`) from there up.  Every stage of either is one
+`dif_butterfly` call (`ops/cuda_mont.py`), which launches the K2 kernel on
+CUDA tensors and runs its plain version on CPU tensors, so both devices
+take the same route and the same stages.
 
 Also the coset-extension transforms (the prover's 4n evaluation domain),
 scalar power tables and barycentric evaluation.  Outputs are exact integers
@@ -40,9 +42,13 @@ def scalar_powers(offset, n: int):
     return pw[:, :n]
 
 
-def _roots_impl(n: int, inverse: bool = False, device="cpu"):
+def _roots_impl(n: int, inverse: bool, device):
     """Device powers [1, w, ..., w^(n-1)] of the order-n domain generator."""
     return scalar_powers(fr.scalar(_root_host(n, inverse), device), n)
+
+
+# From this size up a transform takes the four-step route.
+_FOURSTEP_MIN = 1 << 14
 
 
 def ntt(values, inverse: bool = False):
@@ -51,6 +57,16 @@ def ntt(values, inverse: bool = False):
     values: int32[16, *batch, n] Montgomery.  Forward: coefficients ->
     evaluations at [1, w, w^2, ...]; inverse: evaluations -> coefficients.
     """
+    n = values.shape[-1]
+    if n >= _FOURSTEP_MIN:
+        from .ntt_fourstep import ntt_fourstep
+
+        return ntt_fourstep(values, n, inverse)
+    return _ntt_stockham(values, inverse)
+
+
+def _ntt_stockham(values, inverse: bool):
+    """The last-axis Stockham DIF transform (any power-of-two n)."""
     n = values.shape[-1]
     if n == 1:
         return values
@@ -116,7 +132,7 @@ def barycentric_eval(values, x):
     """Evaluate Lagrange-basis values (int32[16, n] mont) at x (int32[16]
     mont); undefined if x is a domain point."""
     n = values.shape[-1]
-    roots = _roots_impl(n, device=values.device)
+    roots = _roots_impl(n, False, values.device)
     denom = fr.sub(x[:, None], roots)
     terms = fr.mul(fr.mul(values, roots), fr.batch_inv(denom))
     total = _treesum(terms)

@@ -158,7 +158,7 @@ def _quotient_impl(
 
 def _barycentric_batch(values, xs, n: int):
     """values [16, B, n], xs [16, B] -> evals [16, B] (Montgomery)."""
-    roots = _ntt._roots_impl(n, device=values.device)
+    roots = _ntt._roots_impl(n, False, values.device)
     denom = fr.sub(xs[:, :, None], roots[:, None, :])
     terms = fr.mul(fr.mul(values, roots[:, None, :]), fr.batch_inv(denom))
     total = _ntt._treesum(terms)
@@ -378,7 +378,7 @@ class Prover:
     # -- round 2: permutation grand product ------------------------------
     def round_2(self) -> Message2:
         n = self.group_order
-        roots = _ntt._roots_impl(n, device=self.device)
+        roots = _ntt._roots_impl(n, False, self.device)
         beta, gamma = self._s(self.beta)[:, None], self._s(self.gamma)[:, None]
         a, b, c = self.A.values, self.B.values, self.C.values
         s1, s2, s3 = self._s_stack

@@ -20,7 +20,7 @@ import torch
 
 
 class Timings:
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         self.device = torch.device(device)
         self.sections = defaultdict(float)
         self.counts = defaultdict(int)

@@ -3,6 +3,8 @@
 * It imports no JAX and nothing of plonkathon_tpu, in any submodule.
 * Its entry points run on the card unless the caller asks for the CPU:
   without a card, asking for CUDA (the default) raises.
+* chip_smoke.py's per-phase required kernel sets together name every
+  kernel that counts launches.
 """
 
 import os
@@ -37,22 +39,34 @@ def test_port_imports_no_jax_and_no_reference_package():
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout
     assert "BAD []" in out, out
-    assert int(out.split("IMPORTED ")[1].split()[0]) >= 20, out
+    assert int(out.split("IMPORTED ")[1].split()[0]) >= 22, out
+    for module in ("ops.msm3", "ops.ntt_fourstep"):
+        assert os.path.exists(
+            os.path.join(ROOT, "plonkathon_tpu_torch", *module.split(".")) + ".py")
 
 
 def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py's module level and its port imports pull in no JAX."""
+    """chip_smoke.py's module level and its port imports pull in no JAX, and
+    its per-phase required sets leave no launch-counting kernel unnamed."""
     code = (
         "import sys; sys.path.insert(0, '.'); import chip_smoke, "
-        "plonkathon_tpu_torch.ops.cuda_lib, plonkathon_tpu_torch.ops.msm2; "
+        "plonkathon_tpu_torch.ops.cuda_lib as lib, plonkathon_tpu_torch.ops.msm2, "
+        "plonkathon_tpu_torch.ops.msm3, plonkathon_tpu_torch.ops.ntt_fourstep; "
         "print(sorted(n for n in sys.modules if n.startswith('jax') "
-        "or n.startswith('plonkathon_tpu.') or n == 'plonkathon_tpu'))"
+        "or n.startswith('plonkathon_tpu.') or n == 'plonkathon_tpu')); "
+        "named = set().union(*chip_smoke.REQUIRED.values()); "
+        "print(sorted(set(lib.LAUNCHES) - named), sorted(named - set(lib.LAUNCHES))); "
+        "print(sorted(set(lib.LAUNCHES) - set().union(*(v for k, v in "
+        "chip_smoke.REQUIRED.items() if k != 'kernels'))))"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120, check=True,
-    ).stdout
-    assert out.strip() == "[]", out
+    ).stdout.splitlines()
+    assert out[0] == "[]", out
+    assert out[1] == "[] []", out  # every id is required somewhere, none unknown
+    # Outside the kernel-vs-plain phase only the caller-less kernels are unnamed.
+    assert out[2] == "['K8b', 'K9']", out
 
 
 @pytest.fixture

@@ -3,7 +3,8 @@
 Each test builds its inputs with numpy.random.default_rng, launches the
 kernel on CUDA tensors and compares the result with the kernel's plain
 torch version in raw limbs, exactly (integer arithmetic).  Edge lanes: 0,
-p-1, 2p-1, the identity, P = Q, P = -Q and P + Q.
+p-1, 2p-1, the identity, P = Q, P = -Q and P + Q; for the packed incomplete
+adds K3 and K4 every value of their mask bits.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with the card and no JAX; it also holds the input builders that
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from plonkathon_tpu_torch.ec import G1, pt_mul, pt_neg
-from plonkathon_tpu_torch.ops import cuda_lib, cuda_mont as CM, msm2 as TM
+from plonkathon_tpu_torch.ops import cuda_lib, cuda_mont as CM, msm2 as TM, msm3 as T3
 from plonkathon_tpu_torch.ops.limbs import fq, fr, encode_ints, to_device
 
 W = 32
@@ -81,6 +82,21 @@ def scan_inputs(rng, steps=4, chunks=8):
     return d_t, p_t, pts
 
 
+def packed_inputs(rng, which, w=W):
+    """(acc [24, w], q, mask [w]) for one K3 ("madd": q packed affine
+    [16, w], mask lane % 4) or K4 ("jadd": q packed Jacobian [24, w], masks
+    0, 1, 4, 5 in turn) step.  Random lazy limbs, except lanes 0-3: acc = P
+    and q = Q, real points, under each mask value."""
+    rows = 2 if which == "madd" else 3
+    acc = torch.cat([rand_limbs(rng, fq, w, edges=False) for _ in range(3)])
+    q = torch.cat([rand_limbs(rng, fq, w, edges=False) for _ in range(rows)])
+    acc[:, :4] = real_point(0xC0FFEE)[0]
+    q[:, :4] = real_point(0xBEEF)[0][: 16 * rows]
+    values = [0, 1, 2, 3] if which == "madd" else [0, 1, 4, 5]
+    mask = torch.tensor([values[i % 4] for i in range(w)], dtype=torch.int32)
+    return T3.pack_array(acc), T3.pack_array(q), mask
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -138,3 +154,46 @@ def test_cuda_wrappers_count_launches(cuda):
     CM.mont_mul("fr", a, a)
     CM.mont_mul_plain("fr", a, a)  # the plain version launches nothing
     assert cuda_lib.LAUNCHES["K1 fr"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["madd", "jadd"])
+def test_cuda_k3_k4_equal_plain(cuda, which):
+    """One step, and a 5-step scan against the plain step applied 5 times."""
+    rng = np.random.default_rng(16)
+    step, plain = {
+        "madd": (T3.madd_packed, T3.madd_packed_plain),
+        "jadd": (T3.jadd_packed, T3.jadd_packed_plain),
+    }[which]
+    acc, q, mask = (x.to(cuda) for x in packed_inputs(rng, which, 1001))
+    assert torch.equal(step(acc, q, mask), plain(acc, q, mask))
+    qs = torch.stack([q.roll(s, dims=1) for s in range(5)])
+    ms = torch.stack([mask.roll(s) for s in range(5)])
+    got = T3._inc_scan(which, acc, qs, ms)
+    want = acc
+    for s in range(5):
+        want = plain(want, qs[s], ms[s])
+        assert torch.equal(got[s], want), s
+
+
+@pytest.mark.cuda
+def test_cuda_k8a_equals_plain(cuda):
+    a, b = (coords(x.to(cuda)) for x in point_pairs(np.random.default_rng(17), 1000))
+    got, want = CM.jac_add(a, b), CM.jac_add_plain(a, b)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_k8b_equals_plain(cuda):
+    a, b = (coords(x.to(cuda)) for x in point_pairs(np.random.default_rng(18), 1000))
+    got, want = CM.jac_madd(a, b[:2]), CM.jac_madd_plain(a, b[:2])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_k9_equals_plain(cuda):
+    rng = np.random.default_rng(19)
+    e, o = (rand_limbs(rng, fr, 96).reshape(16, 3, 8, 4).to(cuda) for _ in range(2))
+    tw = rand_limbs(rng, fr, 8).reshape(16, 1, 8, 1).to(cuda)
+    got, want = CM.butterfly(e, o, tw), CM.butterfly_plain(e, o, tw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

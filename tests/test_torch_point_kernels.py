@@ -1,10 +1,12 @@
-"""The plain versions of the point kernels K5, K6 and K7 against the bodies
-of the TPU kernels they replace (CPU).
+"""The plain versions of the point kernels K5, K6, K7, K8a and K8b against
+the bodies of the TPU kernels they replace (CPU).
 
   K5 jadd_stacked  <-> pallas_mont._kern_add(KQ, ...)
   K6 run_scan      <-> a step loop of _kern_madd(KQ, ...) with the identity
                        reset of msm2._scan_kernel
   K7 jac_double_n  <-> repeated _kern_double(KQ, ...)
+  K8a jac_add      <-> pallas_mont._jac_add_kernel, the whole body
+  K8b jac_madd     <-> pallas_mont._jac_madd_kernel, the whole body
 
 The TPU bodies run as plain jnp functions on lists of limb arrays; results
 are compared in raw limbs, exactly.  Edge lanes: the identity, P = Q,
@@ -12,6 +14,7 @@ P = -Q and P + Q of real points.
 """
 
 import numpy as np
+import torch
 import jax.numpy as jnp
 
 from plonkathon_tpu.ops import pallas_mont as PM
@@ -67,3 +70,30 @@ def test_k6_run_scan_doubles_and_cancels():
     z = out[:, 32:48]
     assert not bool(fq.is_zero(z[1, :, 0:1]))  # 2P after two steps
     assert bool(fq.is_zero(z[1, :, 1:2]))  # P + (-P) = identity
+
+
+def _stacked_body(kernel, a, b):
+    """Run a stacked-point Pallas kernel body on jnp arrays ([rows, w] refs
+    indexed by row, a list as the output ref)."""
+    out = [None] * 48
+    u32 = lambda t: jnp.asarray(t.numpy().astype(np.uint32))
+    kernel(u32(a), u32(b), out)
+    return out
+
+
+def test_k8a_jac_add_plain_matches_kernel_body():
+    a, b = point_pairs(np.random.default_rng(25))
+    got = CM.jac_add_plain(coords(a), coords(b))
+    assert_raw_equal(torch.cat(got), _stacked_body(PM._jac_add_kernel, a, b))
+    # The CPU wrapper is the plain version, and broadcasts a single point.
+    one = tuple(c[:, 4:5] for c in coords(b))
+    for g, w in zip(CM.jac_add(coords(a), one), CM.jac_add_plain(coords(a), one)):
+        assert g.shape == (16, a.shape[1]) and torch.equal(g, w)
+
+
+def test_k8b_jac_madd_plain_matches_kernel_body():
+    a, b = point_pairs(np.random.default_rng(26))
+    got = CM.jac_madd_plain(coords(a), coords(b)[:2])
+    assert_raw_equal(torch.cat(got), _stacked_body(PM._jac_madd_kernel, a, b[:32]))
+    for g, w in zip(CM.jac_madd(coords(a), coords(b)[:2]), got):
+        assert torch.equal(g, w)
