@@ -8,9 +8,11 @@ Phases, each printing its lines:
   2. build of the CUDA kernels (one nvcc call) and ptxas's report;
   3. each of the ten kernels against its plain torch version ON THE CARD at
      the n = 2^18 path's shapes (its msm3 commits, four-step NTTs and its
-     one msm2 fallback commit) plus edge lanes: equal raw limbs, kernel and
-     plain times from CUDA events, and the bound (bytes over 3.35 TB/s vs
-     32-bit multiplies over the card's integer multiply rate);
+     one msm2 fallback commit) plus edge lanes, and one whole msm3 suffix
+     fold (46 K5 launches) against the same fold on CPU copies: equal raw
+     limbs, kernel and plain times from CUDA events, and the bound (bytes
+     over 3.35 TB/s vs 32-bit multiplies, products and squarings counted
+     apart, over the card's integer multiply rate);
   4. the fixture proof on the ceremony SRS: proof.pickle reproduced field
      for field, the three snarkjs vkeys and the golden commitment, verify;
   5. a mul-chain proof at n = 2^11 on the ceremony SRS, verified (commits
@@ -50,11 +52,16 @@ PTAU = os.path.join(FIXTURES, "powersOfTau28_hez_final_11.ptau")
 HBM_BYTES_PER_S = 3.35e12
 INT_MUL_PER_S = 132 * 64 * 1.98e9
 # 32-bit multiplies per Montgomery product: 8x8 a*b and 8x8 m*p word
-# products (a low and a high half each) plus 8 m digits.
-MULS_PER_MONT = 2 * (64 + 64) + 8
-MONT_PER_JADD = 16
-MONT_PER_MADD = 11
-MONT_PER_DOUBLE = 7
+# products (a low and a high half each) plus 8 m digits; a squaring needs
+# 72 for a*a (each cross product once, 28 x 2, plus 8 x 2 squares), 8 and
+# 128.  Every point kernel's bound counts its products and squarings
+# apart, (products, squarings) per operation:
+MULS_PER_MUL = 2 * (64 + 64) + 8
+MULS_PER_SQR = 72 + 8 + 128
+OPS_FIELD = (1, 0)
+OPS_MADD = (8, 3)     # K3, K6, K8b
+OPS_JADD = (12, 4)    # K4, K5, K8a
+OPS_DOUBLE = (2, 5)   # K7, per doubling
 HEADLINE_N = 1 << 18
 MID_N = 1 << 16
 CHAIN_N = 1 << 11
@@ -111,9 +118,14 @@ def chain_lines(n: int) -> list[str]:
 # Phase 3: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
-def _bound(nbytes: int, nmont: int) -> tuple[float, str]:
+def _muls(ops: tuple[int, int], count: int) -> int:
+    """32-bit multiplies of `count` operations of (products, squarings)."""
+    return count * (ops[0] * MULS_PER_MUL + ops[1] * MULS_PER_SQR)
+
+
+def _bound(nbytes: int, muls: int) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nmont * MULS_PER_MONT / INT_MUL_PER_S * 1e3
+    t_ops = muls / INT_MUL_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -242,13 +254,41 @@ def _check_k3_decodes(torch, got):
             fail(f"K3 lane {lane} (mask {lane}) does not decode to the expected point")
 
 
+def _bucket_multiples(torch, w: int):
+    """Stacked Jacobian [48, w] of real points: lane i holds (i + 1) * P,
+    built by a ladder of K5 launches (lanes k..2k-1 = lanes 0..k-1 + k * P);
+    every 61st lane is then emptied to the identity (Z = 0)."""
+    from plonkathon_tpu_torch.ops import msm2
+
+    arr, _ = _real_point(torch, 0xC0FFEE)
+    while arr.shape[1] < w:
+        k = arr.shape[1]
+        arr = torch.cat([arr, msm2.jadd_stacked(arr, arr[:, k - 1 :].expand(-1, k))], dim=1)
+    arr[32:, ::61] = 0
+    return arr
+
+
+def _check_fold_affine(torch, got):
+    """The suffix fold of _bucket_multiples is sum_b b * (b * P) over the
+    buckets b = i + 1 that were not emptied."""
+    from plonkathon_tpu_torch.ec import G1, pt_mul
+    from plonkathon_tpu_torch.fields import FR_MOD
+    from plonkathon_tpu_torch.ops import msm3
+    from plonkathon_tpu_torch.ops.curve import jac_to_affine_host
+
+    k = sum((i + 1) ** 2 for i in range(msm3._NB2) if i % 61)
+    want = pt_mul(G1, 0xC0FFEE * k % FR_MOD)
+    if jac_to_affine_host(tuple(got[16 * i : 16 * (i + 1)] for i in range(3))) != want:
+        fail("the msm3 suffix fold on the card does not decode to sum_b b * B_b")
+
+
 def check_kernels(torch, np) -> list[dict]:
     """Each kernel against its plain version on the card, at the shapes the
     headline (n = 2^18) path gives it: the msm3 commits and four-step NTTs,
     and the one msm2 fallback commit at m = 2^18 (K6's scan, K5's widest
     chunk-fold level, K7's 8-doubling table step); K8a, K8b, K9, which no
     path calls, at width 2^20."""
-    from plonkathon_tpu_torch.ops import cuda_mont as CM, msm2, msm3
+    from plonkathon_tpu_torch.ops import cuda_lib, cuda_mont as CM, msm2, msm3
     from plonkathon_tpu_torch.ops.limbs import fq, fr
 
     n, reps = HEADLINE_N, 20
@@ -264,7 +304,7 @@ def check_kernels(torch, np) -> list[dict]:
             kernel=f"K1 {field}", name=f"K1 mont_mul ({field})", width=w,
             run=lambda f=field, a=a, b=b: CM.mont_mul(f, a, b),
             plain=lambda f=field, a=a, b=b: CM.mont_mul_plain(f, a, b),
-            nbytes=3 * 64 * w, nmont=w,
+            nbytes=3 * 64 * w, muls=_muls(OPS_FIELD, w),
         ))
     # K2: one four-step stage of the 4n coset NTT over the 15-polynomial stack.
     w = 15 * 2 * n
@@ -273,7 +313,7 @@ def check_kernels(torch, np) -> list[dict]:
         kernel="K2", name="K2 dif_butterfly", width=w,
         run=lambda: CM.dif_butterfly(c0, c1, tw),
         plain=lambda: CM.dif_butterfly_plain(c0, c1, tw),
-        nbytes=5 * 64 * w, nmont=w,
+        nbytes=5 * 64 * w, muls=_muls(OPS_FIELD, w),
     ))
     # K3: the commit run-scan, S = 32 steps x C = 2^17 lanes, one launch.
     steps, lanes, _, t_ends, _ = msm3.plan_params(16 * n)
@@ -282,7 +322,7 @@ def check_kernels(torch, np) -> list[dict]:
         kernel="K3", name="K3 madd_packed (run-scan)", width=steps * lanes,
         run=lambda: msm3._inc_scan("madd", acc3, pts3, mask3),
         plain=lambda: _plain_scan(torch, msm3.madd_packed_plain, acc3, pts3, mask3),
-        nbytes=(164 * steps + 96) * lanes, nmont=MONT_PER_MADD * steps * lanes,
+        nbytes=(164 * steps + 96) * lanes, muls=_muls(OPS_MADD, steps * lanes),
         after=_check_k3_decodes,
     ))
     # K4: the merge scan (16 steps x T/16 lanes, bit 0 only) and one dense-
@@ -295,7 +335,7 @@ def check_kernels(torch, np) -> list[dict]:
         kernel="K4", name="K4 jadd_packed (merge scan)", width=16 * w4,
         run=lambda: msm3._inc_scan("jadd", acc4, pts4, mask4),
         plain=lambda: _plain_scan(torch, msm3.jadd_packed_plain, acc4, pts4, mask4),
-        nbytes=(196 * 16 + 96) * w4, nmont=MONT_PER_JADD * live,
+        nbytes=(196 * 16 + 96) * w4, muls=_muls(OPS_JADD, live),
     ))
     accd, ptsd, maskd = _inc_case(torch, np, rng, "jadd", 1, msm3._NB2, [0, 1, 4])
     live = int(((maskd & 4) == 0).sum())
@@ -303,7 +343,7 @@ def check_kernels(torch, np) -> list[dict]:
         kernel="K4", name="K4 jadd_packed (dense buckets)", width=msm3._NB2,
         run=lambda: msm3.jadd_packed(accd, ptsd[0], maskd[0]),
         plain=lambda: msm3.jadd_packed_plain(accd, ptsd[0], maskd[0]),
-        nbytes=(196 + 96) * msm3._NB2, nmont=MONT_PER_JADD * live,
+        nbytes=(196 + 96) * msm3._NB2, muls=_muls(OPS_JADD, live),
     ))
     # K5: the widest level of msm3's Blelloch bucket fold (2^15 points), and
     # the widest level of the msm2 fallback's chunk fold (NB * C / 2).
@@ -316,8 +356,24 @@ def check_kernels(torch, np) -> list[dict]:
             kernel="K5", name=f"K5 jadd_stacked ({label})", width=w,
             run=lambda pa=pa, pb=pb: msm2.jadd_stacked(pa, pb),
             plain=lambda pa=pa, pb=pb: msm2.jadd_stacked_plain(pa, pb),
-            nbytes=3 * 192 * w, nmont=MONT_PER_JADD * w,
+            nbytes=3 * 192 * w, muls=_muls(OPS_JADD, w),
         ))
+    # K5, the whole msm3 suffix fold of one commit (msm3._blelloch_suffix_fold:
+    # 46 launches at widths 2^15 down to 1) on a dense [48, 2^15] of real
+    # points, held against the same fold run on CPU copies (the plain route,
+    # timed once) and, as an affine point, against the host curve.  Its bound
+    # sums every launch's work: each is bound by operations.
+    dense = _bucket_multiples(torch, msm3._NB2)
+    levels = msm3._NB2.bit_length() - 1
+    fold_widths = [1 << j for j in range(levels)] * 3 + [msm3._NB2]
+    cases.append(dict(
+        kernel="K5", name="K5 jadd_stacked (msm3 suffix fold, whole)",
+        width=sum(fold_widths),
+        run=lambda: msm3._blelloch_suffix_fold(dense),
+        plain=lambda: msm3._blelloch_suffix_fold(dense.cpu()).to("cuda"),
+        nbytes=3 * 192 * sum(fold_widths), muls=_muls(OPS_JADD, sum(fold_widths)),
+        plain_once=True, profiled=True, after=_check_fold_affine,
+    ))
     # K6: the msm2 run-scan of the m = 2^18 fallback commit, S steps x C
     # chunks of sorted digits.  Its plain version loops the S steps on the
     # card in seconds: it is run once, compared and timed in that one call.
@@ -334,7 +390,7 @@ def check_kernels(torch, np) -> list[dict]:
         kernel="K6", name="K6 run_scan", width=steps6 * chunks,
         run=lambda: msm2.run_scan(d_t, p_t, pts),
         plain=lambda: msm2.run_scan_plain(d_t, p_t, pts),
-        nbytes=(8 + 128 + 192) * steps6 * chunks, nmont=MONT_PER_MADD * steps6 * chunks,
+        nbytes=(8 + 128 + 192) * steps6 * chunks, muls=_muls(OPS_MADD, steps6 * chunks),
         plain_once=True,
     ))
     # K7: one window step of a table build over n points: 16 doublings for
@@ -347,7 +403,7 @@ def check_kernels(torch, np) -> list[dict]:
             kernel="K7", name=f"K7 jac_double_n ({label}, {nd} doublings)", width=w,
             run=lambda nd=nd: CM.jac_double_n(pd, nd),
             plain=lambda nd=nd: CM.jac_double_n_plain(pd, nd),
-            nbytes=2 * 192 * w, nmont=nd * MONT_PER_DOUBLE * w,
+            nbytes=2 * 192 * w, muls=_muls(OPS_DOUBLE, nd * w),
         ))
     # K8a, K8b, K9: no path calls them; one representative width.
     w = 1 << 20
@@ -357,24 +413,27 @@ def check_kernels(torch, np) -> list[dict]:
     cases.append(dict(
         kernel="K8a", name="K8a jac_add", width=w,
         run=lambda: CM.jac_add(ca, cb), plain=lambda: CM.jac_add_plain(ca, cb),
-        nbytes=3 * 192 * w, nmont=MONT_PER_JADD * w,
+        nbytes=3 * 192 * w, muls=_muls(OPS_JADD, w),
     ))
     cases.append(dict(
         kernel="K8b", name="K8b jac_madd", width=w,
         run=lambda: CM.jac_madd(ca, cb[:2]), plain=lambda: CM.jac_madd_plain(ca, cb[:2]),
-        nbytes=(192 + 128 + 192) * w, nmont=MONT_PER_MADD * w,
+        nbytes=(192 + 128 + 192) * w, muls=_muls(OPS_MADD, w),
     ))
     e9, o9, t9 = (_lazy(torch, np, rng, fr, w) for _ in range(3))
     cases.append(dict(
         kernel="K9", name="K9 butterfly", width=w,
         run=lambda: CM.butterfly(e9, o9, t9), plain=lambda: CM.butterfly_plain(e9, o9, t9),
-        nbytes=5 * 64 * w, nmont=w,
+        nbytes=5 * 64 * w, muls=_muls(OPS_FIELD, w),
     ))
 
     records = []
     for c in cases:
+        kernel_id = c["kernel"]
+        before = cuda_lib.LAUNCHES[kernel_id]
         got = c["run"]()
         torch.cuda.synchronize()
+        per_call = cuda_lib.LAUNCHES[kernel_id] - before
         t0 = time.perf_counter()
         want = c["plain"]()
         torch.cuda.synchronize()
@@ -388,18 +447,23 @@ def check_kernels(torch, np) -> list[dict]:
         ms = _timed(torch, c["run"], reps)
         if not c.get("plain_once"):
             plain_ms = _timed(torch, c["plain"], 1)
-        bound_ms, bound_by = _bound(c["nbytes"], c["nmont"])
-        src, replaces = SOURCES[c["kernel"].split()[0]]
-        records.append(dict(
-            name=c["name"], kernel=c["kernel"], route="cuda", source=src,
+        bound_ms, bound_by = _bound(c["nbytes"], c["muls"])
+        src, replaces = SOURCES[kernel_id.split()[0]]
+        rec = dict(
+            name=c["name"], kernel=kernel_id, route="cuda", source=src,
             replaces=replaces, width=c["width"], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            bytes=c["nbytes"], int_muls=c["nmont"] * MULS_PER_MONT,
+            bytes=c["nbytes"], int_muls=c["muls"], launches_per_call=per_call,
             library_ms=None,
-        ))
+        )
+        extra = ""
+        if c.get("profiled"):
+            rec["device_ms"] = device_breakdown(torch, c["run"])["device_ms"]
+            extra = f", {per_call} launches, {rec['device_ms']:.4f} ms of them on the device"
+        records.append(rec)
         print(f"[3] {c['name']}: width {c['width']} equal raw limbs (max abs err "
               f"{err}, tolerance 0: integer arithmetic); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+              f"{ms:.4f} ms{extra}, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by})", flush=True)
         del got
     return records

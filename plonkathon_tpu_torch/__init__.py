@@ -3,9 +3,12 @@
 The port of `plonkathon_tpu` (JAX on a TPU) to an NVIDIA H100: the same
 `Setup` / `Program` / `Prover` / `VerificationKey` surface and the same
 proofs bit for bit.  Field and curve arithmetic run as batched limb tensors
-in torch; the five kernels on the proving path (Montgomery multiply, NTT
-butterfly, stacked point add, MSM run-scan, repeated doubling) are CUDA C++
-for sm_90a under `csrc/`, built with nvcc at first use.  Entry points run on
+in torch; the ten kernels that stand for the JAX package's Pallas calls
+(Montgomery multiply, NTT butterflies, complete and incomplete point adds,
+the msm2 and msm3 run-scans, repeated doubling) are CUDA C++ for sm_90a
+under `csrc/`, built with nvcc at first use.  Small circuits commit through
+msm2 and transform through the Stockham NTT; from 8192 coefficients and
+n = 2^14 up the proving path takes msm3 and the four-step NTT.  Entry points run on
 the card unless the caller passes `device="cpu"`, which runs the kernels'
 plain torch versions.
 

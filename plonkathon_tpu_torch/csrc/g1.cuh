@@ -59,6 +59,27 @@ static __device__ __noinline__ Jac jac_double(const Jac& p, const FieldConst& c)
   return r;
 }
 
+// _kern_double on the carry-chain arithmetic (field.cuh), inlined: K7's
+// loop keeps the point in registers.  An identity lane (Z = 0) stays one,
+// since Z3 = 2Y * Z.
+__device__ __forceinline__ Jac jac_double_ptx(const Jac& p, const FieldConst& c) {
+  Fe A = fe_sqr_ptx(p.x, c);
+  Fe B = fe_sqr_ptx(p.y, c);
+  Fe C = fe_sqr_ptx(B, c);
+  Fe D = fe_sub_ptx(fe_sqr_ptx(fe_add_ptx(p.x, B, c), c), fe_add_ptx(A, C, c), c);
+  D = fe_add_ptx(D, D, c);
+  Fe E = fe_add_ptx(fe_add_ptx(A, A, c), A, c);
+  Fe F = fe_sqr_ptx(E, c);
+  Jac r;
+  r.x = fe_sub_ptx(F, fe_add_ptx(D, D, c), c);
+  Fe C2 = fe_add_ptx(C, C, c);
+  Fe C4 = fe_add_ptx(C2, C2, c);  // once: nvcc never merges volatile asm
+  Fe C8 = fe_add_ptx(C4, C4, c);
+  r.y = fe_sub_ptx(fe_mul_ptx(E, fe_sub_ptx(D, r.x, c), c), C8, c);
+  r.z = fe_mul_ptx(fe_add_ptx(p.y, p.y, c), p.z, c);
+  return r;
+}
+
 // _kern_add: complete Jacobian + Jacobian (identity, doubling, cancellation).
 __device__ __forceinline__ Jac jac_add(const Jac& p, const Jac& q,
                                        const FieldConst& c) {

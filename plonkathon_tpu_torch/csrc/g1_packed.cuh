@@ -1,7 +1,7 @@
 // Packed-row loads and the incomplete G1 adds of the msm3 kernels (K3,
-// K4).  Op for op the formulas of msm3._kern_madd_inc and _kern_jadd_inc,
-// so every output is the same raw words as the TPU kernels and the plain
-// torch versions.
+// K4).  Op for op the formulas of msm3._kern_madd_inc and _kern_jadd_inc
+// (a squaring where they square), so every output is the same raw words
+// as the TPU kernels and the plain torch versions.
 #pragma once
 #include "g1.cuh"
 
@@ -39,29 +39,31 @@ __device__ __forceinline__ void jac_store_packed(int32_t* base, long long w,
   fe_store_packed(base + 16 * w, w, i, p.z);
 }
 
-// msm3._kern_madd_inc: INCOMPLETE Jacobian + affine, 11 products, no
-// identity, doubling or cancellation branch; a fresh lane restarts at
-// (x2, y2, 1).  Only valid where p is not the identity and p != +-q; the
-// msm3 pipeline (ops/msm3.py) says why its live lanes satisfy that and
-// why the other lanes' garbage is never read.
-// Not inlined: with either incomplete add inlined into its kernel's step
-// loop, nvcc 12.8 had not finished compiling the source after 330 s on
-// the H100 host; as a call it takes 21 s.
-static __device__ __noinline__ Jac jac_madd_inc(const Jac& p, const Fe& x2,
+// msm3._kern_madd_inc: INCOMPLETE Jacobian + affine, 8 products and 3
+// squarings on the carry-chain arithmetic (field.cuh), no identity,
+// doubling or cancellation branch; a fresh lane restarts at (x2, y2, 1).
+// Only valid where p is not the identity and p != +-q; the msm3 pipeline
+// (ops/msm3.py) says why its live lanes satisfy that and why the other
+// lanes' garbage is never read.  Inlined into K3's step loop, so the
+// accumulator stays in registers with no call frame; the asm chains are
+// opaque to nvcc's optimizer, which keeps the inlined body compiling in
+// seconds (msm3.cu alone: ~17 s on the H100 host, PERF.md).
+__device__ __forceinline__ Jac jac_madd_inc(const Jac& p, const Fe& x2,
                                             const Fe& y2, bool fresh,
                                             const FieldConst& c) {
-  Fe Z1Z1 = fe_mul(p.z, p.z, c);
-  Fe U2 = fe_mul(x2, Z1Z1, c);
-  Fe S2 = fe_mul(y2, fe_mul(p.z, Z1Z1, c), c);
-  Fe H = fe_sub(U2, p.x, c);
-  Fe R = fe_sub(S2, p.y, c);
-  Fe HH = fe_mul(H, H, c);
-  Fe HHH = fe_mul(H, HH, c);
-  Fe V = fe_mul(p.x, HH, c);
+  Fe Z1Z1 = fe_sqr_ptx(p.z, c);
+  Fe U2 = fe_mul_ptx(x2, Z1Z1, c);
+  Fe S2 = fe_mul_ptx(y2, fe_mul_ptx(p.z, Z1Z1, c), c);
+  Fe H = fe_sub_ptx(U2, p.x, c);
+  Fe R = fe_sub_ptx(S2, p.y, c);
+  Fe HH = fe_sqr_ptx(H, c);
+  Fe HHH = fe_mul_ptx(H, HH, c);
+  Fe V = fe_mul_ptx(p.x, HH, c);
   Jac r;
-  r.x = fe_sub(fe_sub(fe_mul(R, R, c), HHH, c), fe_add(V, V, c), c);
-  r.y = fe_sub(fe_mul(R, fe_sub(V, r.x, c), c), fe_mul(p.y, HHH, c), c);
-  r.z = fe_mul(p.z, H, c);
+  r.x = fe_sub_ptx(fe_sub_ptx(fe_sqr_ptx(R, c), HHH, c), fe_add_ptx(V, V, c), c);
+  r.y = fe_sub_ptx(fe_mul_ptx(R, fe_sub_ptx(V, r.x, c), c),
+                   fe_mul_ptx(p.y, HHH, c), c);
+  r.z = fe_mul_ptx(p.z, H, c);
   if (fresh) {
     r.x = x2;
     r.y = y2;
@@ -71,7 +73,9 @@ static __device__ __noinline__ Jac jac_madd_inc(const Jac& p, const Fe& x2,
 }
 
 // msm3._kern_jadd_inc: INCOMPLETE Jacobian + Jacobian, 16 products (4 of
-// them squarings); a fresh lane restarts at q.
+// them squarings); a fresh lane restarts at q.  Not inlined: with the
+// 64-bit C product inlined into K4's step loop nvcc did not finish the
+// source in 330 s; as a call it builds in seconds.
 static __device__ __noinline__ Jac jac_add_inc(const Jac& p, const Jac& q,
                                            bool fresh, const FieldConst& c) {
   Fe Z1Z1 = fe_mul(p.z, p.z, c);

@@ -6,7 +6,8 @@
 // Design, shared by all: one thread per element, 16-bit limbs
 // repacked into 8 x 32-bit words at load (ops/limbs.py wire format, limb-
 // major so each limb row is one coalesced load), CIOS Montgomery product
-// with 64-bit partial products (field.cuh).
+// with 64-bit partial products (field.cuh) -- except K7, which runs on
+// field.cuh's carry-chain product and squaring.
 #include "field.cuh"
 #include "g1.cuh"
 
@@ -47,18 +48,27 @@ k2_kernel(const int32_t* __restrict__ c0, const int32_t* __restrict__ c1,
 }
 
 // K7.  Replaces ops/pallas_mont.py:_jac_double_kernel (jac_double_n).
-// Bound: operations -- 7 Montgomery products per doubling, 8 (msm2) or 16
-// (msm3) doublings per window step, against 384 bytes moved per point.
+// Bound: operations -- 2 Montgomery products and 5 squarings per doubling
+// (2 * 264 + 5 * 208 = 1568 32-bit multiplies), 8 (msm2) or 16 (msm3)
+// doublings per window step, against 384 bytes moved per point: 0.393 ms
+// for 16 doublings of 2^18 points and 0.197 ms for 8 on an H100 (PERF.md).
 // Design: the TPU launches one kernel per doubling; here one launch loops
 // n_times with the point in registers, so the stacked [48, W] array is
-// read and written once.
-__global__ void __launch_bounds__(kThreads)
+// read and written once.  The doubling (g1.cuh jac_double_ptx) is inlined
+// with no call frame, on the carry-chain products and squarings of
+// field.cuh; threads per block come from ptxas's register count and a
+// sweep at both path shapes (scripts/sweep_k3_k7.py, PERF.md).
+constexpr int kK7Threads = 512;
+constexpr int kK7MinBlocks = 1;
+
+__global__ void __launch_bounds__(kK7Threads, kK7MinBlocks)
 k7_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
           long long w, int n_times, FieldConst c) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w) return;
   Jac p = jac_load(in, w, i);
-  for (int k = 0; k < n_times; ++k) p = jac_double(p, c);
+#pragma unroll 1
+  for (int k = 0; k < n_times; ++k) p = jac_double_ptx(p, c);
   jac_store(out, w, i, p);
 }
 
@@ -128,7 +138,7 @@ extern "C" int k2_dif_butterfly(const void* c0, const void* c1, const void* tw,
 extern "C" int k7_jac_double_n(const void* in, void* out, long long w,
                                int n_times, const void* consts, void* stream) {
   if (w <= 0) return 0;
-  k7_kernel<<<blocks_for(w, kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+  k7_kernel<<<blocks_for(w, kK7Threads), kK7Threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)in, (int32_t*)out, w, n_times, unpack_const(consts));
   return (int)cudaGetLastError();
 }

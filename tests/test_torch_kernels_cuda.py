@@ -138,13 +138,26 @@ def test_cuda_k6_equals_plain(cuda):
     assert torch.equal(TM.run_scan(d_t, p_t, pts), TM.run_scan_plain(d_t, p_t, pts))
 
 
+def top_limbs(w, rows=16):
+    """2p - 1 (Fq) in every coordinate: int32[rows, w] limbs."""
+    col = torch.from_numpy(encode_ints([2 * fq.modulus - 1]))
+    return col.repeat(rows // 16, w)
+
+
 @pytest.mark.cuda
-def test_cuda_k7_equals_plain(cuda):
+@pytest.mark.parametrize("n_times", [8, 16])
+def test_cuda_k7_equals_plain(cuda, n_times):
+    """Lane 0 and lanes 8-11 are identities (Z = 0, random X and Y), lanes
+    5-7 have every coordinate at 2p - 1, lane 12 has Z = p."""
     a, _ = point_pairs(np.random.default_rng(14), 700)
+    a[:, 5:8] = top_limbs(3, 48)
+    a[32:, 8:12] = 0
+    a[32:, 12] = torch.from_numpy(encode_ints([fq.modulus]))[:, 0]
     p = tuple(c.to(cuda) for c in coords(a))
-    got = CM.jac_double_n(p, 8)
-    want = CM.jac_double_n_plain(p, 8)
+    got = CM.jac_double_n(p, n_times)
+    want = CM.jac_double_n_plain(p, n_times)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not got[2][:, [0, 8, 9, 10, 11]].any()  # identities stay identities
 
 
 @pytest.mark.cuda
@@ -157,21 +170,31 @@ def test_cuda_wrappers_count_launches(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["madd", "jadd"])
-def test_cuda_k3_k4_equal_plain(cuda, which):
-    """One step, and a 5-step scan against the plain step applied 5 times."""
+@pytest.mark.parametrize("which,steps", [("madd", 5), ("jadd", 5), ("madd", 12)])
+def test_cuda_k3_k4_equal_plain(cuda, which, steps):
+    """One step, and a scan against the plain step applied `steps` times.
+    The 12-step K3 scan adds long-run lanes (fresh at step 0, then never
+    again: lanes 8-15, negated at every step in 12-15) and coordinates at
+    2p - 1 (the points of lanes 16-23, the start of lanes 20-27)."""
     rng = np.random.default_rng(16)
     step, plain = {
         "madd": (T3.madd_packed, T3.madd_packed_plain),
         "jadd": (T3.jadd_packed, T3.jadd_packed_plain),
     }[which]
-    acc, q, mask = (x.to(cuda) for x in packed_inputs(rng, which, 1001))
+    acc, q, mask = packed_inputs(rng, which, 1001)
+    qs = torch.stack([q.roll(s, dims=1) for s in range(steps)])
+    ms = torch.stack([mask.roll(s) for s in range(steps)])
+    if steps > 5:
+        ms[:, 8:16] = 0
+        ms[0, 8:16] = 1
+        ms[:, 12:16] |= 2
+        qs[:, :, 16:24] = T3.pack_array(top_limbs(8, 16 * qs.shape[1] // 8))
+        acc[:, 20:28] = T3.pack_array(top_limbs(8, 48))
+    acc, q, mask, qs, ms = (x.to(cuda) for x in (acc, q, mask, qs, ms))
     assert torch.equal(step(acc, q, mask), plain(acc, q, mask))
-    qs = torch.stack([q.roll(s, dims=1) for s in range(5)])
-    ms = torch.stack([mask.roll(s) for s in range(5)])
     got = T3._inc_scan(which, acc, qs, ms)
     want = acc
-    for s in range(5):
+    for s in range(steps):
         want = plain(want, qs[s], ms[s])
         assert torch.equal(got[s], want), s
 
