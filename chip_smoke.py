@@ -8,11 +8,13 @@ Phases, each printing its lines:
   2. build of the CUDA kernels (one nvcc call) and ptxas's report;
   3. each of the ten kernels against its plain torch version ON THE CARD at
      the n = 2^18 path's shapes (its msm3 commits, four-step NTTs and its
-     one msm2 fallback commit) plus edge lanes, and one whole msm3 suffix
-     fold (46 K5 launches) against the same fold on CPU copies: equal raw
-     limbs, kernel and plain times from CUDA events, and the bound (bytes
-     over 3.35 TB/s vs 32-bit multiplies, products and squarings counted
-     apart, over the card's integer multiply rate);
+     one msm2 fallback commit) plus edge lanes -- among them one whole msm3
+     suffix fold (one K5 launch) against the same fold on CPU copies and
+     all J dense-bucket rounds (one K4 launch): equal raw limbs, kernel and
+     plain times from CUDA events, the bound (bytes over 3.35 TB/s vs
+     32-bit multiplies, products and squarings counted apart, over the
+     card's integer multiply rate) and ptxas's registers, stack frame and
+     spills for the kernel's function;
   4. the fixture proof on the ceremony SRS: proof.pickle reproduced field
      for field, the three snarkjs vkeys and the golden commitment, verify;
   5. a mul-chain proof at n = 2^11 on the ceremony SRS, verified (commits
@@ -282,6 +284,39 @@ def _check_fold_affine(torch, got):
         fail("the msm3 suffix fold on the card does not decode to sum_b b * B_b")
 
 
+def _ptxas(log: str, function: str) -> dict:
+    """Registers, stack frame and spill bytes ptxas reported for the kernel
+    `function` (matched in its mangled name)."""
+    import re
+
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and f"{len(function)}{function}" in line:
+            text = " ".join(lines[i + 1 : i + 4])
+            stack = re.search(r"(\d+) bytes stack frame", text)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+            regs = re.search(r"Used (\d+) registers", text)
+            if stack and spills and regs:
+                return dict(registers=int(regs.group(1)), stack_bytes=int(stack.group(1)),
+                            spill_bytes=int(spills.group(1)) + int(spills.group(2)))
+    fail(f"no ptxas report for {function} in the build log")
+
+
+def _dense_keys(np, rng, nb: int, t: int, J: int):
+    """Sorted bucket keys [t] as the merge stage hands them to the dense
+    stage: multiplicities from 0 to J (every value present, most buckets 1
+    or 2), then the _BIG tail; returns (keys, multiplicities)."""
+    from plonkathon_tpu_torch.ops import msm3
+
+    mult = np.minimum(rng.poisson(1.5, size=nb), J)
+    mult[: J + 1] = np.arange(J + 1)
+    keys = np.repeat(np.arange(1, nb + 1), mult)
+    if len(keys) > t:
+        fail(f"dense-stage keys overflow T = {t}")
+    keys = np.concatenate([keys, np.full(t - len(keys), msm3._BIG)])
+    return keys.astype(np.int32), mult
+
+
 def check_kernels(torch, np) -> list[dict]:
     """Each kernel against its plain version on the card, at the shapes the
     headline (n = 2^18) path gives it: the msm3 commits and four-step NTTs,
@@ -301,7 +336,7 @@ def check_kernels(torch, np) -> list[dict]:
         b = _lazy(torch, np, rng, ops, w)
         b[:, :3] = b[:, 2:3]
         cases.append(dict(
-            kernel=f"K1 {field}", name=f"K1 mont_mul ({field})", width=w,
+            kernel=f"K1 {field}", fn="k1_kernel", name=f"K1 mont_mul ({field})", width=w,
             run=lambda f=field, a=a, b=b: CM.mont_mul(f, a, b),
             plain=lambda f=field, a=a, b=b: CM.mont_mul_plain(f, a, b),
             nbytes=3 * 64 * w, muls=_muls(OPS_FIELD, w),
@@ -310,7 +345,7 @@ def check_kernels(torch, np) -> list[dict]:
     w = 15 * 2 * n
     c0, c1, tw = (_lazy(torch, np, rng, fr, w) for _ in range(3))
     cases.append(dict(
-        kernel="K2", name="K2 dif_butterfly", width=w,
+        kernel="K2", fn="k2_kernel", name="K2 dif_butterfly", width=w,
         run=lambda: CM.dif_butterfly(c0, c1, tw),
         plain=lambda: CM.dif_butterfly_plain(c0, c1, tw),
         nbytes=5 * 64 * w, muls=_muls(OPS_FIELD, w),
@@ -319,59 +354,61 @@ def check_kernels(torch, np) -> list[dict]:
     steps, lanes, _, t_ends, _ = msm3.plan_params(16 * n)
     acc3, pts3, mask3 = _inc_case(torch, np, rng, "madd", steps, lanes, [0, 1, 2, 3])
     cases.append(dict(
-        kernel="K3", name="K3 madd_packed (run-scan)", width=steps * lanes,
+        kernel="K3", fn="k3_kernel", name="K3 madd_packed (run-scan)", width=steps * lanes,
         run=lambda: msm3._inc_scan("madd", acc3, pts3, mask3),
         plain=lambda: _plain_scan(torch, msm3.madd_packed_plain, acc3, pts3, mask3),
         nbytes=(164 * steps + 96) * lanes, muls=_muls(OPS_MADD, steps * lanes),
         after=_check_k3_decodes,
     ))
-    # K4: the merge scan (16 steps x T/16 lanes, bit 0 only) and one dense-
-    # bucket round (2^15 lanes, fresh / live / dead).  A dead lane does no
-    # products.
+    # K4: the merge scan (16 steps x T/16 lanes, bit 0 only) and the dense-
+    # bucket stage, all J rounds in one launch over T2 sorted run ends.
     w4 = t_ends // 16
     acc4, pts4, mask4 = _inc_case(torch, np, rng, "jadd", 16, w4, [0, 0, 0, 1])
-    live = int(((mask4 & 4) == 0).sum())
+    live = int(((mask4 & 5) == 0).sum())
     cases.append(dict(
-        kernel="K4", name="K4 jadd_packed (merge scan)", width=16 * w4,
+        kernel="K4", fn="k4_kernel", name="K4 jadd_packed (merge scan)", width=16 * w4,
         run=lambda: msm3._inc_scan("jadd", acc4, pts4, mask4),
         plain=lambda: _plain_scan(torch, msm3.jadd_packed_plain, acc4, pts4, mask4),
-        nbytes=(196 * 16 + 96) * w4, muls=_muls(OPS_JADD, live),
+        nbytes=(196 * 16 + 96) * w4, muls=_muls(OPS_JADD, live), profiled=True,
     ))
-    accd, ptsd, maskd = _inc_case(torch, np, rng, "jadd", 1, msm3._NB2, [0, 1, 4])
-    live = int(((maskd & 4) == 0).sum())
+    t_dense = msm3.plan_params(16 * n)[4]
+    keys, mult = _dense_keys(np, rng, msm3._NB2, t_dense, msm3._J)
+    keys_d = torch.from_numpy(keys).to("cuda")
+    pts_d = _packed(torch, np, rng, 3, t_dense)
+    entries = int(mult.sum())
     cases.append(dict(
-        kernel="K4", name="K4 jadd_packed (dense buckets)", width=msm3._NB2,
-        run=lambda: msm3.jadd_packed(accd, ptsd[0], maskd[0]),
-        plain=lambda: msm3.jadd_packed_plain(accd, ptsd[0], maskd[0]),
-        nbytes=(196 + 96) * msm3._NB2, muls=_muls(OPS_JADD, live),
+        kernel="K4", fn="k4_dense_kernel",
+        name=f"K4 dense_buckets (all {msm3._J} rounds, one launch)", width=msm3._NB2,
+        run=lambda: msm3._dense_buckets(keys_d, pts_d, msm3._J),
+        plain=lambda: msm3._dense_buckets_plain(keys_d, pts_d, msm3._J),
+        nbytes=4 * t_dense + 96 * entries + 192 * msm3._NB2,
+        muls=_muls(OPS_JADD, int(np.maximum(mult - 1, 0).sum())),
+        compare=lambda got, want: _max_err(torch, got[0], want[0])
+        + abs(int(got[1]) - int(want[1])),
+        profiled=True,
     ))
-    # K5: the widest level of msm3's Blelloch bucket fold (2^15 points), and
-    # the widest level of the msm2 fallback's chunk fold (NB * C / 2).
+    # K5: the widest level of the msm2 fallback's chunk fold (NB * C / 2).
     k_msm = 32 * n  # the fallback commit's digit count: 32 windows x m = n
     chunks = msm2._choose_chunks(k_msm)
-    for label, w in (("msm3 Blelloch fold", msm3._NB2),
-                     ("msm2 chunk fold", msm2.NB * chunks // 2)):
-        pa, pb = _points(torch, np, rng, w)
-        cases.append(dict(
-            kernel="K5", name=f"K5 jadd_stacked ({label})", width=w,
-            run=lambda pa=pa, pb=pb: msm2.jadd_stacked(pa, pb),
-            plain=lambda pa=pa, pb=pb: msm2.jadd_stacked_plain(pa, pb),
-            nbytes=3 * 192 * w, muls=_muls(OPS_JADD, w),
-        ))
-    # K5, the whole msm3 suffix fold of one commit (msm3._blelloch_suffix_fold:
-    # 46 launches at widths 2^15 down to 1) on a dense [48, 2^15] of real
-    # points, held against the same fold run on CPU copies (the plain route,
-    # timed once) and, as an affine point, against the host curve.  Its bound
-    # sums every launch's work: each is bound by operations.
-    dense = _bucket_multiples(torch, msm3._NB2)
-    levels = msm3._NB2.bit_length() - 1
-    fold_widths = [1 << j for j in range(levels)] * 3 + [msm3._NB2]
+    w = msm2.NB * chunks // 2
+    pa, pb = _points(torch, np, rng, w)
     cases.append(dict(
-        kernel="K5", name="K5 jadd_stacked (msm3 suffix fold, whole)",
-        width=sum(fold_widths),
-        run=lambda: msm3._blelloch_suffix_fold(dense),
-        plain=lambda: msm3._blelloch_suffix_fold(dense.cpu()).to("cuda"),
-        nbytes=3 * 192 * sum(fold_widths), muls=_muls(OPS_JADD, sum(fold_widths)),
+        kernel="K5", fn="k5_kernel", name="K5 jadd_stacked (msm2 chunk fold)", width=w,
+        run=lambda: msm2.jadd_stacked(pa, pb),
+        plain=lambda: msm2.jadd_stacked_plain(pa, pb),
+        nbytes=3 * 192 * w, muls=_muls(OPS_JADD, w), profiled=True,
+    ))
+    # K5, the whole msm3 suffix fold of one commit (msm3.suffix_fold: one
+    # launch) on a dense [48, 2^15] of real points, held against the same
+    # fold run on CPU copies (the plain route, timed once) and, as an
+    # affine point, against the host curve.  Its work: 3.5 W - 4 adds.
+    dense = _bucket_multiples(torch, msm3._NB2)
+    cases.append(dict(
+        kernel="K5", fn="k5_fold_kernel", name="K5 suffix_fold (msm3 bucket fold, whole)",
+        width=msm3._NB2,
+        run=lambda: msm3.suffix_fold(dense),
+        plain=lambda: msm3.suffix_fold(dense.cpu()).to("cuda"),
+        nbytes=192 * (msm3._NB2 + 1), muls=_muls(OPS_JADD, 7 * msm3._NB2 // 2 - 4),
         plain_once=True, profiled=True, after=_check_fold_affine,
     ))
     # K6: the msm2 run-scan of the m = 2^18 fallback commit, S steps x C
@@ -387,7 +424,7 @@ def check_kernels(torch, np) -> list[dict]:
     pts = pts.reshape(steps6, 32, chunks)
     pts[:, :, 0] = _real_point(torch, 0xC0FFEE)[0][:32, 0]  # chunk 0: P, P, P, ...
     cases.append(dict(
-        kernel="K6", name="K6 run_scan", width=steps6 * chunks,
+        kernel="K6", fn="k6_kernel", name="K6 run_scan", width=steps6 * chunks,
         run=lambda: msm2.run_scan(d_t, p_t, pts),
         plain=lambda: msm2.run_scan_plain(d_t, p_t, pts),
         nbytes=(8 + 128 + 192) * steps6 * chunks, muls=_muls(OPS_MADD, steps6 * chunks),
@@ -400,7 +437,7 @@ def check_kernels(torch, np) -> list[dict]:
     pd = tuple(p7a[16 * i : 16 * (i + 1)] for i in range(3))
     for label, nd in (("msm3 tables", msm3.WBITS), ("msm2 tables", msm2.WINDOW_BITS)):
         cases.append(dict(
-            kernel="K7", name=f"K7 jac_double_n ({label}, {nd} doublings)", width=w,
+            kernel="K7", fn="k7_kernel", name=f"K7 jac_double_n ({label}, {nd} doublings)", width=w,
             run=lambda nd=nd: CM.jac_double_n(pd, nd),
             plain=lambda nd=nd: CM.jac_double_n_plain(pd, nd),
             nbytes=2 * 192 * w, muls=_muls(OPS_DOUBLE, nd * w),
@@ -411,22 +448,23 @@ def check_kernels(torch, np) -> list[dict]:
     ca = tuple(qa[16 * i : 16 * (i + 1)] for i in range(3))
     cb = tuple(qb[16 * i : 16 * (i + 1)] for i in range(3))
     cases.append(dict(
-        kernel="K8a", name="K8a jac_add", width=w,
+        kernel="K8a", fn="k8a_kernel", name="K8a jac_add", width=w,
         run=lambda: CM.jac_add(ca, cb), plain=lambda: CM.jac_add_plain(ca, cb),
         nbytes=3 * 192 * w, muls=_muls(OPS_JADD, w),
     ))
     cases.append(dict(
-        kernel="K8b", name="K8b jac_madd", width=w,
+        kernel="K8b", fn="k8b_kernel", name="K8b jac_madd", width=w,
         run=lambda: CM.jac_madd(ca, cb[:2]), plain=lambda: CM.jac_madd_plain(ca, cb[:2]),
         nbytes=(192 + 128 + 192) * w, muls=_muls(OPS_MADD, w),
     ))
     e9, o9, t9 = (_lazy(torch, np, rng, fr, w) for _ in range(3))
     cases.append(dict(
-        kernel="K9", name="K9 butterfly", width=w,
+        kernel="K9", fn="k9_kernel", name="K9 butterfly", width=w,
         run=lambda: CM.butterfly(e9, o9, t9), plain=lambda: CM.butterfly_plain(e9, o9, t9),
         nbytes=5 * 64 * w, muls=_muls(OPS_FIELD, w),
     ))
 
+    log = cuda_lib.build_log()
     records = []
     for c in cases:
         kernel_id = c["kernel"]
@@ -438,7 +476,7 @@ def check_kernels(torch, np) -> list[dict]:
         want = c["plain"]()
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        err = _max_err(torch, got, want)
+        err = c["compare"](got, want) if "compare" in c else _max_err(torch, got, want)
         if err != 0:
             fail(f"{c['name']} differs from its plain version (max abs err {err})")
         if "after" in c:
@@ -454,18 +492,22 @@ def check_kernels(torch, np) -> list[dict]:
             replaces=replaces, width=c["width"], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             bytes=c["nbytes"], int_muls=c["muls"], launches_per_call=per_call,
-            library_ms=None,
+            library_ms=None, function=c["fn"], **_ptxas(log, c["fn"]),
         )
-        extra = ""
-        if c.get("profiled"):
-            rec["device_ms"] = device_breakdown(torch, c["run"])["device_ms"]
-            extra = f", {per_call} launches, {rec['device_ms']:.4f} ms of them on the device"
         records.append(rec)
         print(f"[3] {c['name']}: width {c['width']} equal raw limbs (max abs err "
               f"{err}, tolerance 0: integer arithmetic); kernel "
-              f"{ms:.4f} ms{extra}, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by})", flush=True)
+              f"{ms:.4f} ms, {per_call} launches a call, plain {plain_ms:.2f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}); {c['fn']}: {rec['registers']} registers, "
+              f"{rec['stack_bytes']} B stack, {rec['spill_bytes']} B spills", flush=True)
         del got
+    # Device time under torch.profiler, taken after every CUDA-event timing
+    # so that no profiled run comes before one.
+    for c, rec in zip(cases, records):
+        if c.get("profiled"):
+            rec["device_ms"] = device_breakdown(torch, c["run"])["device_ms"]
+            print(f"[3] {c['name']}: {rec['device_ms']:.4f} ms on the device "
+                  f"(torch.profiler)", flush=True)
     return records
 
 

@@ -72,27 +72,28 @@ __device__ __forceinline__ Jac jac_madd_inc(const Jac& p, const Fe& x2,
   return r;
 }
 
-// msm3._kern_jadd_inc: INCOMPLETE Jacobian + Jacobian, 16 products (4 of
-// them squarings); a fresh lane restarts at q.  Not inlined: with the
-// 64-bit C product inlined into K4's step loop nvcc did not finish the
-// source in 330 s; as a call it builds in seconds.
-static __device__ __noinline__ Jac jac_add_inc(const Jac& p, const Jac& q,
-                                           bool fresh, const FieldConst& c) {
-  Fe Z1Z1 = fe_mul(p.z, p.z, c);
-  Fe Z2Z2 = fe_mul(q.z, q.z, c);
-  Fe U1 = fe_mul(p.x, Z2Z2, c);
-  Fe U2 = fe_mul(q.x, Z1Z1, c);
-  Fe S1 = fe_mul(p.y, fe_mul(q.z, Z2Z2, c), c);
-  Fe S2 = fe_mul(q.y, fe_mul(p.z, Z1Z1, c), c);
-  Fe H = fe_sub(U2, U1, c);
-  Fe R = fe_sub(S2, S1, c);
-  Fe HH = fe_mul(H, H, c);
-  Fe HHH = fe_mul(H, HH, c);
-  Fe V = fe_mul(U1, HH, c);
-  Jac r;
-  r.x = fe_sub(fe_sub(fe_mul(R, R, c), HHH, c), fe_add(V, V, c), c);
-  r.y = fe_sub(fe_mul(R, fe_sub(V, r.x, c), c), fe_mul(S1, HHH, c), c);
-  r.z = fe_mul(fe_mul(p.z, q.z, c), H, c);
-  if (fresh) r = q;
-  return r;
+// msm3._kern_jadd_inc without its fresh select, on a thread pair
+// (jac_add_core_pair, g1.cuh): INCOMPLETE Jacobian + Jacobian, valid where
+// neither point is the identity and p != +-q; ops/msm3.py says why the
+// msm3 lanes that are read satisfy that.  The caller selects q on a fresh
+// lane and the old accumulator on a dead one.  Inlined into K4's loops
+// with no call frame.
+__device__ __forceinline__ Jac jac_add_inc_pair(const Jac& p, const Jac& q,
+                                                const FieldConst& c, bool odd,
+                                                unsigned mask) {
+  Fe H, R;
+  return jac_add_core_pair(p, q, c, odd, mask, H, R);
+}
+
+// A pair's store of its common packed result: the even thread writes X
+// and Y, the odd thread Z.
+__device__ __forceinline__ void jac_store_packed_pair(int32_t* base, long long w,
+                                                      long long i, const Jac& p,
+                                                      bool odd) {
+  if (odd) {
+    fe_store_packed(base + 16 * w, w, i, p.z);
+  } else {
+    fe_store_packed(base, w, i, p.x);
+    fe_store_packed(base + 8 * w, w, i, p.y);
+  }
 }

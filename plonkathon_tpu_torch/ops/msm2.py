@@ -119,7 +119,7 @@ def run_scan(dig, prev, pts):
 # Bucket reduction.
 # ---------------------------------------------------------------------------
 
-def _fold_stacked(arr):
+def _fold_stacked(arr, add=jadd_stacked):
     """[48, W] -> [48, W/2] ... -> [48, 1] by pairwise complete adds."""
     w = arr.shape[-1]
     m = 1 << (w - 1).bit_length()
@@ -127,7 +127,7 @@ def _fold_stacked(arr):
         arr = torch.cat([arr, _identity_stacked(m - w, arr.device)], dim=1)
     while m > 1:
         half = m // 2
-        arr = jadd_stacked(arr[:, :half], arr[:, half:m])
+        arr = add(arr[:, :half], arr[:, half:m])
         m = half
     return arr
 

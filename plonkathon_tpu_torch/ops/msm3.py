@@ -2,13 +2,17 @@
 incomplete-add run-scan, sparse run-end extraction.
 
 Counterpart of the JAX package's `ops/msm3.py`: the commit path for
-m >= 8192 (`ops/curve.py` routes to it).  Two kernels live here (CUDA C++
-in `csrc/msm3.cu`):
+m >= 8192 (`ops/curve.py` routes to it).  Its kernels (CUDA C++):
 
-* K3 `madd_packed` — incomplete Jacobian += affine on packed rows;
-* K4 `jadd_packed` — incomplete Jacobian += Jacobian on packed rows.
+* K3 `madd_packed` — incomplete Jacobian += affine on packed rows
+  (`csrc/msm3.cu`);
+* K4 `jadd_packed` — incomplete Jacobian += Jacobian on packed rows, the
+  merge scan (`csrc/msm3.cu`), and `_dense_buckets`, all J rounds of the
+  dense-bucket stage in one launch of the same add (`k4_dense_buckets`);
+* K5 `suffix_fold` — the whole Blelloch bucket fold in one launch
+  (`csrc/msm.cu` `k5_suffix_fold`, the complete add of `msm2.jadd_stacked`).
 
-The bucket fold reuses K5 (`msm2.jadd_stacked`) and the table build K7.
+The table build is K7.
 
 Pipeline for sum_i c_i * P_i:
 
@@ -46,10 +50,13 @@ Pipeline for sum_i c_i * P_i:
 Differences from the JAX module, none in the function computed: it keeps
 one table layout (packed, window-major [16, 16n]) and the plain gather +
 `_run_scan` route — the JAX module's row-layout table and fused gather scan
-are a workaround for its device's gather unit; and `_plan` does not floor C
-at that device's kernel tile, so small problems get narrower scans.  The
-Jacobian triple depends on the plan; the affine point, which is what
-results are compared as, does not.
+are a workaround for its device's gather unit; `_plan` does not floor C
+at that device's kernel tile, so small problems get narrower scans; on the
+card the dense stage's J gather rounds are one K4 launch in which each
+thread loads its own bucket's entries, and the Blelloch fold is one K5
+launch that runs the same levels pair for pair (the JAX module launches
+per round and per level).  The Jacobian triple depends on the plan; the
+affine point, which is what results are compared as, does not.
 """
 
 from __future__ import annotations
@@ -58,8 +65,8 @@ import torch
 
 from .limbs import fq, fq_plain, NLIMBS, DTYPE, LIMB_MASK, LIMB_BITS
 from .cuda_lib import fn, check, stream_ptr, count_launch
-from .cuda_mont import field_consts, jac_double_n, unstack_points
-from .msm2 import jadd_stacked, _fold_stacked, _identity_stacked, jac_to_affine_batch
+from .cuda_mont import check_limbs, field_consts, jac_double_n, unstack_points
+from .msm2 import jadd_stacked_plain, _fold_stacked, _identity_stacked, jac_to_affine_batch
 
 WBITS = 16
 NW = 16                      # 256 / 16 windows == one per 16-bit limb
@@ -327,49 +334,101 @@ _J = 8  # max entries per bucket the dense gather folds (checked; fallback)
 _NB2 = 1 << 15  # dense bucket array covers b in [1, 2^15]
 
 
-def _dense_buckets(keys, pts_packed, J: int):
-    """keys [T] ascending (<= 2^15 real, _BIG tail), pts_packed [24, T] ->
-    (dense [48, 2^15] unpacked bucket sums for b = 1..2^15, max
-    multiplicity).
+def _dense_buckets_plain(keys, pts_packed, J: int, nb: int = _NB2):
+    """keys [T] ascending (<= nb real, _BIG tail), pts_packed [24, T] ->
+    (dense [48, nb] unpacked bucket sums for b = 1..nb, max multiplicity).
 
-    J gather rounds, each added by K4.  Incomplete is safe: every
-    accumulator is a distinct-subset sum of SRS multiples (see the module
-    docstring); a lane whose bucket has no j-th entry is dead (mask bit 2)
-    and keeps its value, so empty buckets keep the initial Z = 0."""
+    J gather rounds, each added by the plain K4 step.  Incomplete is safe:
+    every accumulator is a distinct-subset sum of SRS multiples (see the
+    module docstring); a lane whose bucket has no j-th entry is dead (mask
+    bit 2) and keeps its value, so empty buckets keep the initial Z = 0."""
     T = keys.shape[0]
-    bvec = torch.arange(1, _NB2 + 1, dtype=keys.dtype, device=keys.device)
+    bvec = torch.arange(1, nb + 1, dtype=keys.dtype, device=keys.device)
     start = torch.searchsorted(keys, bvec)
     stop = torch.searchsorted(keys, bvec + 1)
     maxmult = (stop - start).max()
-    acc = pack_array(_identity_stacked(_NB2, keys.device))
+    acc = pack_array(_identity_stacked(nb, keys.device))
     for j in range(J):
         idx = start + j
         ok = (idx < stop) & (idx < T)
         gi = idx.clamp(max=T - 1)
-        q = pts_packed[:, gi]  # [24, NB2] packed gather
+        q = pts_packed[:, gi]  # [24, nb] packed gather
         mask = torch.where(ok, 1 if j == 0 else 0, 4).to(DTYPE)
-        acc = jadd_packed(acc, q, mask)
+        acc = jadd_packed_plain(acc, q, mask)
     return unpack_array(acc), maxmult
 
 
+def _dense_buckets(keys, pts_packed, J: int, nb: int = _NB2):
+    """K4's dense-bucket stage (see `_dense_buckets_plain`): on CUDA tensors
+    one launch runs all J rounds, each thread finding its bucket's entries
+    by binary search; the max multiplicity comes back as an int32 0-dim
+    tensor.  On CPU tensors the plain rounds."""
+    if not (keys.is_cuda or pts_packed.is_cuda):
+        return _dense_buckets_plain(keys, pts_packed, J, nb)
+    T = keys.shape[0]
+    if pts_packed.shape != (PACKED_JAC, T) or keys.ndim != 1:
+        raise ValueError(f"k4_dense_buckets: expected keys [T], points [24, T]; got "
+                         f"{tuple(keys.shape)}, {tuple(pts_packed.shape)}")
+    if not (keys.dtype == pts_packed.dtype == DTYPE):
+        raise ValueError("k4_dense_buckets: operands must be int32")
+    if not (keys.is_cuda and keys.device == pts_packed.device):
+        raise ValueError("k4_dense_buckets: operands must be on one CUDA device")
+    keys, pts_packed = keys.contiguous(), pts_packed.contiguous()
+    dense = torch.empty((3 * NLIMBS, nb), dtype=DTYPE, device=keys.device)
+    maxmult = torch.zeros((1,), dtype=DTYPE, device=keys.device)
+    rc = fn("k4_dense_buckets")(
+        keys.data_ptr(), pts_packed.data_ptr(), dense.data_ptr(), maxmult.data_ptr(),
+        T, nb, J, field_consts("fq"), stream_ptr(keys.device),
+    )
+    count_launch("K4")
+    check(rc, "k4_dense_buckets")
+    return dense, maxmult[0]
+
+
 def _blelloch_suffix_fold(dense):
-    """sum_{b=1..2^15} b * B_b for dense [48, 2^15] (index i holds b=i+1).
+    """sum_{b=1..W} b * B_b for dense [48, W] (index i holds b=i+1), W a
+    power of two: the plain version of `suffix_fold`.
 
     Inclusive suffix sums S_t = sum_{b>=t} B_b via a work-efficient Blelloch
-    scan (~2*NB complete adds, K5), then sum_b b*B_b = sum_t S_t by a fold."""
+    scan (~2*W complete adds), then sum_b b*B_b = sum_t S_t by a fold."""
+    add = jadd_stacked_plain
     a = torch.flip(dense, dims=[1])  # prefix scan on reversed = suffix scan
     levels = []
     cur = a
     while cur.shape[1] > 1:
         levels.append(cur)
-        cur = jadd_stacked(cur[:, 0::2], cur[:, 1::2])
+        cur = add(cur[:, 0::2], cur[:, 1::2])
     ex = _identity_stacked(1, dense.device)
     for lev in reversed(levels):
         w = lev.shape[1]
-        right = jadd_stacked(ex, lev[:, 0::2])
+        right = add(ex, lev[:, 0::2])
         ex = torch.stack([ex, right], dim=2).reshape(3 * NLIMBS, w)
-    inc = jadd_stacked(ex, a)  # inclusive prefix of reversed = suffix
-    return _fold_stacked(torch.flip(inc, dims=[1]))[:, 0]
+    inc = add(ex, a)  # inclusive prefix of reversed = suffix
+    return _fold_stacked(torch.flip(inc, dims=[1]), add)[:, 0]
+
+
+def suffix_fold(dense):
+    """K5's msm3 suffix fold: sum_b b * B_b as [48] Jacobian limbs for dense
+    [48, W], W a power of two >= 2.  On CUDA tensors one cooperative launch
+    runs the whole Blelloch schedule of `_blelloch_suffix_fold`, pair for
+    pair, through a [2, 48, W] scratch buffer; on CPU tensors the plain
+    version."""
+    w = dense.shape[-1]
+    if dense.ndim != 2 or dense.shape[0] != 3 * NLIMBS or w < 2 or w & (w - 1):
+        raise ValueError(f"suffix_fold: expected [48, W] with W a power of two >= 2, "
+                         f"got {tuple(dense.shape)}")
+    if not dense.is_cuda:
+        return _blelloch_suffix_fold(dense)
+    (dense,) = check_limbs(3 * NLIMBS, dense)
+    scratch = torch.empty((2, 3 * NLIMBS, w), dtype=DTYPE, device=dense.device)
+    out = torch.empty((3 * NLIMBS,), dtype=DTYPE, device=dense.device)
+    rc = fn("k5_suffix_fold")(
+        dense.data_ptr(), scratch.data_ptr(), out.data_ptr(), w,
+        field_consts("fq"), stream_ptr(dense.device),
+    )
+    count_launch("K5")
+    check(rc, "k5_suffix_fold")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -428,7 +487,7 @@ def _msm16_impl(tabp, key, payload, S, C, T, T2, J):
     k3, p3 = _extract_sorted(ys2, k2sm, _S2, C2, T2)
 
     dense, maxmult = _dense_buckets(k3.clamp(max=_BIG), p3, J)
-    return _blelloch_suffix_fold(dense), maxmult
+    return suffix_fold(dense), maxmult
 
 
 def msm_fixed_affine16(tabp, key, payload):

@@ -74,15 +74,15 @@ def compile_copy(work, nvcc, flags, tag, csrc, source, consts=None):
                 log=proc.stdout + proc.stderr, so=so)
 
 
-def sass_classes(cuobjdump: str, so: str) -> dict:
-    """Opcode counts of k3_kernel and k7_kernel in `so`."""
+def sass_classes(cuobjdump: str, so: str, kernels=("k3_kernel", "k7_kernel")) -> dict:
+    """Opcode counts of each kernel of `kernels` in `so`."""
     text = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True,
                           check=True).stdout
     counts, cur = {}, None
     for line in text.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
         if m:
-            cur = next((k for k in ("k3_kernel", "k7_kernel") if k in m.group(1)), None)
+            cur = next((k for k in kernels if f"{len(k)}{k}" in m.group(1)), None)
             if cur:
                 counts[cur] = collections.Counter()
             continue

@@ -170,12 +170,13 @@ def test_cuda_wrappers_count_launches(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which,steps", [("madd", 5), ("jadd", 5), ("madd", 12)])
+@pytest.mark.parametrize("which,steps", [("madd", 5), ("jadd", 5), ("madd", 12), ("jadd", 12)])
 def test_cuda_k3_k4_equal_plain(cuda, which, steps):
     """One step, and a scan against the plain step applied `steps` times.
-    The 12-step K3 scan adds long-run lanes (fresh at step 0, then never
-    again: lanes 8-15, negated at every step in 12-15) and coordinates at
-    2p - 1 (the points of lanes 16-23, the start of lanes 20-27)."""
+    The 12-step scans add long-run lanes (fresh at step 0, then never
+    again: lanes 8-15; K3 negates at every step in 12-15, K4 ignores bit 1)
+    and coordinates at 2p - 1 (the points of lanes 16-23, the start of
+    lanes 20-27)."""
     rng = np.random.default_rng(16)
     step, plain = {
         "madd": (T3.madd_packed, T3.madd_packed_plain),
@@ -220,3 +221,54 @@ def test_cuda_k9_equals_plain(cuda):
     tw = rand_limbs(rng, fr, 8).reshape(16, 1, 8, 1).to(cuda)
     got, want = CM.butterfly(e, o, tw), CM.butterfly_plain(e, o, tw)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def fold_input(rng, w):
+    """Stacked dense buckets [48, w] for the suffix fold: random
+    coordinates, every 5th lane the identity (Z = 0), and real points where
+    the fold's first up-sweep pairs (dense[w - 1 - 2i], dense[w - 2 - 2i])
+    are P + P, P + (-P), identity + P and P + identity."""
+    a, _ = point_pairs(rng, w)
+    a[32:, ::5] = 0
+    p, neg_p = real_point(0xC0FFEE)
+    ident = torch.cat([p[:32], torch.zeros_like(p[32:])])
+    for pair, (x, y) in enumerate(((p, p), (p, neg_p), (ident, p), (p, ident))):
+        if 2 * pair + 2 <= w:
+            a[:, w - 1 - 2 * pair : w - 2 * pair] = x
+            a[:, w - 2 - 2 * pair : w - 1 - 2 * pair] = y
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1 << 4, 1 << 10, 1 << 15])
+def test_cuda_k5_suffix_fold_equals_plain(cuda, w):
+    """One launch of the whole fold against the plain fold on the CPU, in
+    raw limbs."""
+    dense = fold_input(np.random.default_rng(40), w)
+    cuda_lib.reset_launches()
+    got = T3.suffix_fold(dense.to(cuda))
+    assert cuda_lib.LAUNCHES["K5"] == 1
+    assert torch.equal(got.cpu(), T3.suffix_fold(dense))
+
+
+@pytest.mark.cuda
+def test_cuda_k4_dense_buckets_equals_plain(cuda):
+    """Every multiplicity 0..J + 1 among 2^15 buckets, sorted keys with a
+    _BIG tail, random packed points; one launch against the plain rounds
+    on the card, dense limbs and max multiplicity."""
+    rng = np.random.default_rng(41)
+    nb, J = T3._NB2, T3._J
+    mult = rng.integers(0, J + 2, size=nb)
+    mult[:J + 2] = np.arange(J + 2)
+    keys = np.repeat(np.arange(1, nb + 1), mult)
+    keys = np.concatenate([keys, np.full(100, T3._BIG)]).astype(np.int32)
+    T = len(keys)
+    pts = T3.pack_array(torch.cat([rand_limbs(rng, fq, T, edges=False) for _ in range(3)]))
+    pts[:, :8] = T3.pack_array(top_limbs(8, 48))
+    k_t, p_t = torch.from_numpy(keys).to(cuda), pts.to(cuda)
+    cuda_lib.reset_launches()
+    dense, mm = T3._dense_buckets(k_t, p_t, J)
+    assert cuda_lib.LAUNCHES["K4"] == 1
+    want, want_mm = T3._dense_buckets_plain(k_t, p_t, J)
+    assert int(mm) == int(want_mm) == J + 1
+    assert torch.equal(dense, want)
