@@ -7,14 +7,15 @@ Phases, each printing its lines:
   1. the device (torch's name and count, nvidia-smi's name and power limit);
   2. build of the CUDA kernels (one nvcc call) and ptxas's report;
   3. each of the ten kernels against its plain torch version ON THE CARD at
-     the n = 2^18 path's shapes (its msm3 commits, four-step NTTs and its
-     one msm2 fallback commit) plus edge lanes -- among them one whole msm3
-     suffix fold (one K5 launch) against the same fold on CPU copies and
-     all J dense-bucket rounds (one K4 launch): equal raw limbs, kernel and
-     plain times from CUDA events, the bound (bytes over 3.35 TB/s vs
-     32-bit multiplies, products and squarings counted apart, over the
-     card's integer multiply rate) and ptxas's registers, stack frame and
-     spills for the kernel's function;
+     the n = 2^18 path's shapes (Setup.generate's window sum, its msm3
+     commits, four-step NTTs and its one msm2 fallback commit) plus edge
+     lanes -- among them one whole msm3 suffix fold (one K5 launch) against
+     the same fold on CPU copies, all J dense-bucket rounds (one K4 launch)
+     and the 32-window sum of 2^18 points (one K8a launch): equal raw
+     limbs, kernel and plain times from CUDA events, the bound (bytes over
+     3.35 TB/s vs 32-bit multiplies, products and squarings counted apart,
+     over the card's integer multiply rate) and ptxas's registers, stack
+     frame and spills for the kernel's function;
   4. the fixture proof on the ceremony SRS: proof.pickle reproduced field
      for field, the three snarkjs vkeys and the golden commitment, verify;
   5. a mul-chain proof at n = 2^11 on the ceremony SRS, verified (commits
@@ -88,12 +89,14 @@ SOURCES = {
 # four-step NTT, and K6 runs only on msm3's overflow fallback -- which the
 # mul-chain's verification key takes once: its one public input makes QL
 # the values [1, 0, 0, ...], n equal coefficients 1/n, so every window's
-# digit fills a single bucket.  K8a sums Setup.generate's windows; K8b and
-# K9 have no caller and run in phase 3 alone.
+# digit fills a single bucket.  K8a ("K8a", its window sum) sums
+# Setup.generate's windows in one launch; the elementwise K8a ("K8a add"),
+# K8b and K9 have no caller and run in phase 3 alone.
 _SMALL_PATH = ("K1 fr", "K1 fq", "K2", "K5", "K6", "K7")
 _LARGE_PATH = ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K6", "K7", "K8a")
 REQUIRED = {
-    "kernels": ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K6", "K7", "K8a", "K8b", "K9"),
+    "kernels": ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K6", "K7", "K8a", "K8a add",
+                "K8b", "K9"),
     "fixture": _SMALL_PATH,
     "chain-2^11": _SMALL_PATH,
     "chain-2^16": _LARGE_PATH,
@@ -317,12 +320,89 @@ def _dense_keys(np, rng, nb: int, t: int, J: int):
     return keys.astype(np.int32), mult
 
 
+def _scan_case(torch, np, rng, steps: int, chunks: int):
+    """Inputs of a K6 scan as msm2 builds them: sorted 8-bit digits per
+    chunk, prev shifted by one step, random affine bases; chunk 0 takes P
+    at every step of one long run (the doubling branch)."""
+    from plonkathon_tpu_torch.ops import msm2
+    from plonkathon_tpu_torch.ops.limbs import fq
+
+    dig = np.sort(rng.integers(0, msm2.NB, size=(chunks, steps)), axis=1)
+    dig[0] = 7
+    prev = np.concatenate([dig[:, :1], dig[:, :-1]], axis=1)
+    d_t = torch.from_numpy(np.ascontiguousarray(dig.T, dtype=np.int32)).to("cuda")
+    p_t = torch.from_numpy(np.ascontiguousarray(prev.T, dtype=np.int32)).to("cuda")
+    pts = torch.stack([_lazy(torch, np, rng, fq, chunks, edges=False) for _ in range(2 * steps)])
+    pts = pts.reshape(steps, 32, chunks)
+    pts[:, :, 0] = _real_point(torch, 0xC0FFEE)[0][:32, 0]
+    return d_t, p_t, pts
+
+
+def _window_points(torch, np, rng, n: int):
+    """Window-major Jacobian coordinates (X, Y, Z), each [16, 32, n], as
+    Setup.generate's gather lays them out: random lazy coordinates, the
+    identity (Z = 0) where a digit is 0 -- the digits drawn as the bytes
+    of scalars below r fall, uniform in windows 0-30 and below r >> 248 + 1
+    in window 31 -- and real points in points 0-3: P in every window
+    (doublings at every level), P and -P alternating (cancellations, then
+    identity + identity), P, Q, P, Q and then identities (a doubling of
+    P + Q at level 2, with Z != 1), and identity + P, P + identity."""
+    from plonkathon_tpu_torch.fields import FR_MOD
+    from plonkathon_tpu_torch.ops.limbs import fq
+
+    w = 32 * n
+    stacked = torch.cat([_lazy(torch, np, rng, fq, w, edges=False) for _ in range(3)])
+    stacked = stacked.reshape(48, 32, n)
+    dig = rng.integers(0, 256, size=(32, n))
+    dig[31] = rng.integers(0, (FR_MOD >> 248) + 1, size=n)
+    stacked[32:, torch.from_numpy(dig == 0).to("cuda")] = 0
+    p, neg_p = _real_point(torch, 0xC0FFEE)
+    q, _ = _real_point(torch, 0xBEEF)
+    ident = torch.cat([p[:32], torch.zeros_like(p[32:])])
+    stacked[:, :, 0] = p
+    stacked[:, :, 1] = torch.cat([p, neg_p], dim=1).repeat(1, 16)
+    stacked[:, :, 2] = ident
+    stacked[:, :4, 2] = torch.cat([p, q, p, q], dim=1)
+    stacked[:, :4, 3] = torch.cat([ident, p, p, ident], dim=1)
+    return tuple(stacked[16 * i : 16 * (i + 1)] for i in range(3))
+
+
+def _window_adds(torch, win) -> int:
+    """The adds of the window sum of `win` whose operands are both not the
+    identity (an add with an identity operand multiplies nothing): the
+    plain halving, counted level by level."""
+    from plonkathon_tpu_torch.ops import cuda_mont as CM
+    from plonkathon_tpu_torch.ops.limbs import fq_plain
+
+    X, Y, Z = win
+    adds = 0
+    while X.shape[1] > 1:
+        live = ~fq_plain.is_zero(Z[:, 0::2]) & ~fq_plain.is_zero(Z[:, 1::2])
+        adds += int(live.sum())
+        X, Y, Z = CM.jac_add_plain(
+            (X[:, 0::2], Y[:, 0::2], Z[:, 0::2]), (X[:, 1::2], Y[:, 1::2], Z[:, 1::2])
+        )
+    return adds
+
+
+def _scan_adds(torch, d_t, p_t, want) -> int:
+    """The mixed adds of a K6 scan whose accumulator is not the identity,
+    from its prefixes `want` [S, 48, C]: the first step and every fresh
+    step add to the identity (no multiplies), as does a step after a
+    prefix that cancelled."""
+    from plonkathon_tpu_torch.ops.limbs import fq_plain
+
+    live = ~fq_plain.is_zero(want[:-1, 32:].transpose(0, 1)) & (d_t[1:] == p_t[1:])
+    return int(live.sum())
+
+
 def check_kernels(torch, np) -> list[dict]:
     """Each kernel against its plain version on the card, at the shapes the
-    headline (n = 2^18) path gives it: the msm3 commits and four-step NTTs,
-    and the one msm2 fallback commit at m = 2^18 (K6's scan, K5's widest
-    chunk-fold level, K7's 8-doubling table step); K8a, K8b, K9, which no
-    path calls, at width 2^20."""
+    headline (n = 2^18) path gives it: Setup.generate's window sum, the
+    msm3 commits and four-step NTTs, and the one msm2 fallback commit at
+    m = 2^18 (K6's scan, K5's widest chunk-fold level, K7's 8-doubling
+    table step); the elementwise K8a, K8b and K9, which no path calls, at
+    width 2^20."""
     from plonkathon_tpu_torch.ops import cuda_lib, cuda_mont as CM, msm2, msm3
     from plonkathon_tpu_torch.ops.limbs import fq, fr
 
@@ -415,19 +495,13 @@ def check_kernels(torch, np) -> list[dict]:
     # chunks of sorted digits.  Its plain version loops the S steps on the
     # card in seconds: it is run once, compared and timed in that one call.
     steps6 = k_msm // chunks
-    dig = np.sort(rng.integers(0, msm2.NB, size=(chunks, steps6)), axis=1)
-    dig[0] = 7  # one long run: the same base twice -> doubling branch
-    prev = np.concatenate([dig[:, :1], dig[:, :-1]], axis=1)
-    d_t = torch.from_numpy(np.ascontiguousarray(dig.T, dtype=np.int32)).to("cuda")
-    p_t = torch.from_numpy(np.ascontiguousarray(prev.T, dtype=np.int32)).to("cuda")
-    pts = torch.stack([_lazy(torch, np, rng, fq, chunks, edges=False) for _ in range(2 * steps6)])
-    pts = pts.reshape(steps6, 32, chunks)
-    pts[:, :, 0] = _real_point(torch, 0xC0FFEE)[0][:32, 0]  # chunk 0: P, P, P, ...
+    d_t, p_t, pts = _scan_case(torch, np, rng, steps6, chunks)
     cases.append(dict(
         kernel="K6", fn="k6_kernel", name="K6 run_scan", width=steps6 * chunks,
         run=lambda: msm2.run_scan(d_t, p_t, pts),
         plain=lambda: msm2.run_scan_plain(d_t, p_t, pts),
-        nbytes=(8 + 128 + 192) * steps6 * chunks, muls=_muls(OPS_MADD, steps6 * chunks),
+        nbytes=(8 + 128 + 192) * steps6 * chunks,
+        muls=lambda want: _muls(OPS_MADD, _scan_adds(torch, d_t, p_t, want)),
         plain_once=True,
     ))
     # K7: one window step of a table build over n points: 16 doublings for
@@ -442,13 +516,24 @@ def check_kernels(torch, np) -> list[dict]:
             plain=lambda nd=nd: CM.jac_double_n_plain(pd, nd),
             nbytes=2 * 192 * w, muls=_muls(OPS_DOUBLE, nd * w),
         ))
-    # K8a, K8b, K9: no path calls them; one representative width.
+    # K8a: Setup.generate(2^18)'s window sum, 32 windows of n points in one
+    # launch: 31 n adds, of which the bound counts those with no identity
+    # operand.  Its plain version halves level by level on the card.
+    win = _window_points(torch, np, rng, n)
+    cases.append(dict(
+        kernel="K8a", fn="k8a_window_kernel", name="K8a window_sum (Setup.generate)",
+        width=32 * n,
+        run=lambda: CM.jac_window_sum(win), plain=lambda: CM.jac_window_sum_plain(win),
+        nbytes=(3 * 64 * 32 + 192) * n, muls=_muls(OPS_JADD, _window_adds(torch, win)),
+        profiled=True,
+    ))
+    # The elementwise K8a, K8b, K9: no path calls them; one representative width.
     w = 1 << 20
     qa, qb = _points(torch, np, rng, w)
     ca = tuple(qa[16 * i : 16 * (i + 1)] for i in range(3))
     cb = tuple(qb[16 * i : 16 * (i + 1)] for i in range(3))
     cases.append(dict(
-        kernel="K8a", fn="k8a_kernel", name="K8a jac_add", width=w,
+        kernel="K8a add", fn="k8a_kernel", name="K8a jac_add", width=w,
         run=lambda: CM.jac_add(ca, cb), plain=lambda: CM.jac_add_plain(ca, cb),
         nbytes=3 * 192 * w, muls=_muls(OPS_JADD, w),
     ))
@@ -481,17 +566,18 @@ def check_kernels(torch, np) -> list[dict]:
             fail(f"{c['name']} differs from its plain version (max abs err {err})")
         if "after" in c:
             c["after"](torch, got)
+        muls = c["muls"](want) if callable(c["muls"]) else c["muls"]
         del want
         ms = _timed(torch, c["run"], reps)
         if not c.get("plain_once"):
             plain_ms = _timed(torch, c["plain"], 1)
-        bound_ms, bound_by = _bound(c["nbytes"], c["muls"])
+        bound_ms, bound_by = _bound(c["nbytes"], muls)
         src, replaces = SOURCES[kernel_id.split()[0]]
         rec = dict(
             name=c["name"], kernel=kernel_id, route="cuda", source=src,
             replaces=replaces, width=c["width"], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            bytes=c["nbytes"], int_muls=c["muls"], launches_per_call=per_call,
+            bytes=c["nbytes"], int_muls=muls, launches_per_call=per_call,
             library_ms=None, function=c["fn"], **_ptxas(log, c["fn"]),
         )
         records.append(rec)
@@ -589,7 +675,7 @@ def device_breakdown(torch, fn, top: int = 8) -> dict:
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        m = re.search(r"k\d[ab]?_kernel", evt.name)
+        m = re.search(r"k\d[ab]?_(?:\w+_)?kernel", evt.name)
         name = m.group(0) if m else "torch:" + evt.name.split("<")[0].split("(")[0][-40:]
         by_name[name] = by_name.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3
     total = sum(by_name.values())
@@ -624,6 +710,8 @@ def synthetic_phase(ptt, torch, cuda_lib, n: int, phase: str, tag: str, profiled
     t_setup = time.perf_counter() - t0
     prover, witness, cold = chain_proof(ptt, setup, n)
     launches = launches_since_reset(torch, cuda_lib, phase)
+    if launches["K8a"] != 1:
+        fail(f"{phase}: Setup.generate's window sum took {launches['K8a']} K8a launches, not 1")
     peak = torch.cuda.max_memory_allocated()
     prover.timings = type(prover.timings)(prover.device)
     t0 = time.perf_counter()

@@ -80,36 +80,6 @@ __device__ __forceinline__ Jac jac_double_ptx(const Jac& p, const FieldConst& c)
   return r;
 }
 
-// _kern_add: complete Jacobian + Jacobian (identity, doubling, cancellation).
-__device__ __forceinline__ Jac jac_add(const Jac& p, const Jac& q,
-                                       const FieldConst& c) {
-  Fe Z1Z1 = fe_mul(p.z, p.z, c);
-  Fe Z2Z2 = fe_mul(q.z, q.z, c);
-  Fe U1 = fe_mul(p.x, Z2Z2, c);
-  Fe U2 = fe_mul(q.x, Z1Z1, c);
-  Fe S1 = fe_mul(p.y, fe_mul(q.z, Z2Z2, c), c);
-  Fe S2 = fe_mul(q.y, fe_mul(p.z, Z1Z1, c), c);
-  Fe H = fe_sub(U2, U1, c);
-  Fe R = fe_sub(S2, S1, c);
-  Fe HH = fe_mul(H, H, c);
-  Fe HHH = fe_mul(H, HH, c);
-  Fe V = fe_mul(U1, HH, c);
-  Jac r;
-  r.x = fe_sub(fe_sub(fe_mul(R, R, c), HHH, c), fe_add(V, V, c), c);
-  r.y = fe_sub(fe_mul(R, fe_sub(V, r.x, c), c), fe_mul(S1, HHH, c), c);
-  r.z = fe_mul(fe_mul(p.z, q.z, c), H, c);
-
-  bool p_inf = fe_is_zero(p.z, c);
-  bool q_inf = fe_is_zero(q.z, c);
-  bool h_zero = fe_is_zero(H, c) && !(p_inf || q_inf);
-  bool r_zero = fe_is_zero(R, c);
-  if (h_zero && r_zero) r = jac_double(p, c);  // p == q
-  if (h_zero && !r_zero) r.z = fe_zero();       // p == -q
-  if (p_inf) r = q;
-  if (q_inf) r = p;
-  return r;
-}
-
 // The doubling branch of jac_add_ptx, out of line: it runs only on lanes
 // where p == q, and inlined it would double the add's code.  Operands by
 // value, so they travel in registers.
@@ -148,7 +118,7 @@ __device__ __forceinline__ Jac jac_add_core_ptx(const Jac& p, const Jac& q,
   return r;
 }
 
-// jac_add's selects (identity, doubling, cancellation) on the sum r of
+// _kern_add's selects (identity, doubling, cancellation) on the sum r of
 // jac_add_core_ptx or jac_add_core_pair.
 __device__ __forceinline__ Jac jac_add_selects(Jac r, const Jac& p, const Jac& q,
                                                const Fe& H, const Fe& R,
@@ -234,7 +204,7 @@ __device__ __forceinline__ Jac jac_add_core_pair(const Jac& p, const Jac& q,
   return r;
 }
 
-// _kern_add on a thread pair: jac_add_core_pair and jac_add's selects.
+// _kern_add on a thread pair: jac_add_core_pair and _kern_add's selects.
 __device__ __forceinline__ Jac jac_add_pair(const Jac& p, const Jac& q,
                                             const FieldConst& c, bool odd,
                                             unsigned mask) {
@@ -276,6 +246,73 @@ __device__ __forceinline__ Jac jac_madd(const Jac& p, const Fe& x2,
   bool r_zero = fe_is_zero(R, c);
   if (h_zero && r_zero) r = jac_double(p, c);
   if (h_zero && !r_zero) r.z = fe_zero();
+  if (p_inf) {
+    r.x = x2;
+    r.y = y2;
+    r.z = fe_const(c.one);
+  }
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// _kern_madd on a thread pair (K6's run-scan).  The chain of _kern_madd is
+// Z1^2 -> Z1^3 -> S2 -> R^2 -> R (V - X3): the threads 2k and 2k + 1 of a
+// warp both hold p and q = (x2, y2) and split its 11 products into four
+// rounds, 6 in sequence on each thread instead of 11:
+//   1. Z1Z1 = Z1^2 on both;
+//   2. U2 = X2 Z1Z1, HH = (U2 - X1)^2 | Z1^3 = Z1 Z1Z1, S2 = Y2 Z1^3;
+//      swap U2 | S2, both form H and R;
+//   3. HHH = H HH, V = X1 HH | R^2, Z3 = Z1 H; swap, both form X3;
+//   4. R (V - X3) | Y1 HHH; swap, both form Y3.
+// Both threads execute the same instructions on operands chosen by their
+// parity, so no product diverges; the squares of rounds 2 and 3 are
+// products of an element with itself, the same integer as a squaring
+// (REDC with R = 2^256 is unique).  Every product has _kern_madd's
+// operands, so the words are the TPU body's.  The products run on the
+// carry chains (the 64-bit CIOS was no faster here: PERF.md).  `mask`
+// names the lanes that call it.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ Jac jac_madd_core_pair(const Jac& p, const Fe& x2, const Fe& y2,
+                                                  const FieldConst& c, bool odd,
+                                                  unsigned mask, Fe& H, Fe& R) {
+  Fe Z1Z1 = fe_sqr_ptx(p.z, c);
+  Fe t = fe_mul_ptx(fe_select(odd, p.z, x2), Z1Z1, c);  // U2 | Z1^3
+  Fe h = fe_sub_ptx(t, p.x, c);                         // H on the even thread
+  Fe u = fe_mul_ptx(fe_select(odd, y2, h), fe_select(odd, t, h), c);  // HH | S2
+  Fe o = fe_from_pair(fe_select(odd, u, t), mask);
+  Fe U2 = fe_select(odd, o, t);
+  Fe S2 = fe_select(odd, u, o);
+  H = fe_sub_ptx(U2, p.x, c);
+  R = fe_sub_ptx(S2, p.y, c);
+  Fe t1 = fe_mul_ptx(fe_select(odd, R, H), fe_select(odd, R, u), c);      // HHH | R^2
+  Fe t2 = fe_mul_ptx(fe_select(odd, p.z, p.x), fe_select(odd, H, u), c);  // V | Z3
+  Fe o1 = fe_from_pair(t1, mask);
+  Fe o2 = fe_from_pair(t2, mask);
+  Fe HHH = fe_select(odd, o1, t1);
+  Fe RR = fe_select(odd, t1, o1);
+  Fe V = fe_select(odd, o2, t2);
+  Jac r;
+  r.z = fe_select(odd, t2, o2);
+  r.x = fe_sub_ptx(fe_sub_ptx(RR, HHH, c), fe_add_ptx(V, V, c), c);
+  Fe t4 = fe_mul_ptx(fe_select(odd, p.y, R),
+                     fe_select(odd, HHH, fe_sub_ptx(V, r.x, c)), c);  // R (V - X3) | Y1 HHH
+  Fe o4 = fe_from_pair(t4, mask);
+  r.y = fe_sub_ptx(fe_select(odd, o4, t4), fe_select(odd, t4, o4), c);
+  return r;
+}
+
+// _kern_madd's selects on the sum r of jac_madd_core_pair: the doubling
+// (out of line) where p == q, Z = 0 where p == -q, q itself where p is
+// the identity.
+__device__ __forceinline__ Jac jac_madd_selects(Jac r, const Jac& p, const Fe& x2,
+                                                const Fe& y2, const Fe& H, const Fe& R,
+                                                const FieldConst& c) {
+  bool p_inf = fe_is_zero(p.z, c);
+  bool h_zero = fe_is_zero(H, c) && !p_inf;
+  bool r_zero = fe_is_zero(R, c);
+  if (h_zero && r_zero) r = jac_double_call(p, c);  // p == q
+  if (h_zero && !r_zero) r.z = fe_zero();            // p == -q
   if (p_inf) {
     r.x = x2;
     r.y = y2;

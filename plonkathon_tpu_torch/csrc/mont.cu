@@ -1,13 +1,13 @@
 // Elementwise field and point kernels: K1 mont_mul, K2 dif_butterfly,
-// K7 jac_double_n, K8a jac_add, K8b jac_madd, K9 butterfly.  Plain C entry
-// points for ctypes; each launches on the caller's stream, allocates
-// nothing, and returns cudaGetLastError().
+// K7 jac_double_n, K8a jac_add and Setup.generate's window sum, K8b
+// jac_madd, K9 butterfly.  Plain C entry points for ctypes; each launches
+// on the caller's stream, allocates nothing, and returns cudaGetLastError().
 //
 // Design, shared by all: one thread per element, 16-bit limbs
 // repacked into 8 x 32-bit words at load (ops/limbs.py wire format, limb-
 // major so each limb row is one coalesced load), CIOS Montgomery product
-// with 64-bit partial products (field.cuh) -- except K7, which runs on
-// field.cuh's carry-chain product and squaring.
+// with 64-bit partial products (field.cuh) -- except K7 and K8a, which run
+// on field.cuh's carry-chain product and squaring.
 #include "field.cuh"
 #include "g1.cuh"
 
@@ -74,21 +74,110 @@ k7_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
 
 // K8a.  Replaces ops/pallas_mont.py:_jac_add_kernel (jac_add): complete
 // Jacobian + Jacobian on stacked [48, W] triples (_kern_add).  Bound:
-// operations -- 16 Montgomery products per 576 bytes moved.  Design: the
-// device function K5 uses, one thread per point.
-constexpr int kPointThreads = 128;
+// operations -- 12 Montgomery products and 4 squarings (4000 32-bit
+// multiplies) per 576 bytes moved.  Design: K5's (csrc/msm.cu k5_kernel),
+// one thread per point, the add inlined on the carry chains (jac_add_ptx)
+// with the doubling out of line, 64 threads x 8 minimum blocks per SM.
+// No path calls it: Setup.generate's window sum is k8a_window_kernel.
+constexpr int kK8aThreads = 64;
+constexpr int kK8aMinBlocks = 8;
 
-__global__ void __launch_bounds__(kPointThreads)
+__global__ void __launch_bounds__(kK8aThreads, kK8aMinBlocks)
 k8a_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
            int32_t* __restrict__ o, long long w, FieldConst c) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w) return;
-  jac_store(o, w, i, jac_add(jac_load(a, w, i), jac_load(b, w, i), c));
+  jac_store(o, w, i, jac_add_ptx(jac_load(a, w, i), jac_load(b, w, i), c));
+}
+
+// K8a, Setup.generate's window sum (the JAX package's jac_fold_sum of
+// the window points, a level-by-level halving over _kern_add, which the
+// port ran as five K8a launches over copied strided operands).  Input:
+// Jacobian coordinates x, y, z, each int32 [16, W, n] (window-major: window
+// k of point i at column k * n + i), W a power of two, 2 <= W <= 32; out
+// [48, n] stacked, sum over the W windows of each point.  Bound:
+// operations -- up to (W - 1) n adds of 12 products and 4 squarings (an add
+// with an identity operand, from a digit 0, needs none): 1.95 ms for
+// 31 x 2^18 adds on an H100, against 0.50 ms for the 1.61 GB read.
+// Design: one thread per point walks its tree of W - 1 adds depth-first in
+// ONE launch (windows 0 + 1, 2 + 3, then (0 + 1) + (2 + 3), ...), so each
+// add has exactly the operands it has in the level order and the sum is
+// jac_fold_sum's, word for word.  A left sibling waits in shared memory
+// until its right sibling is done: at most one per level below the root
+// (a binary counter), 4 x 96 bytes per thread, laid out [level][word]
+// [thread] so a warp's accesses hit 32 banks.  The add is jac_add_ptx,
+// one call site for leaves and carries; the window-major layout lets
+// neighbouring threads read neighbouring words of every window.
+constexpr int kWinThreads = 64;
+constexpr int kWinMinBlocks = 8;
+constexpr int kWinLevels = 4;  // pending sums; W <= 2^(kWinLevels + 1)
+
+__device__ __forceinline__ void pend_store(uint32_t (*pend)[24][kWinThreads], int lvl,
+                                           const Jac& p) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    pend[lvl][k][threadIdx.x] = p.x.w[k];
+    pend[lvl][8 + k][threadIdx.x] = p.y.w[k];
+    pend[lvl][16 + k][threadIdx.x] = p.z.w[k];
+  }
+}
+
+__device__ __forceinline__ Jac pend_load(uint32_t (*pend)[24][kWinThreads], int lvl) {
+  Jac p;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    p.x.w[k] = pend[lvl][k][threadIdx.x];
+    p.y.w[k] = pend[lvl][8 + k][threadIdx.x];
+    p.z.w[k] = pend[lvl][16 + k][threadIdx.x];
+  }
+  return p;
+}
+
+__global__ void __launch_bounds__(kWinThreads, kWinMinBlocks)
+k8a_window_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                  const int32_t* __restrict__ z, int32_t* __restrict__ o,
+                  long long n, int windows, FieldConst c) {
+  __shared__ uint32_t pend[kWinLevels][24][kWinThreads];
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long stride = windows * n;  // limb rows of [16, W, n]
+  Jac acc;
+  int leaf = 0;     // the next leaf pair: windows 2 leaf, 2 leaf + 1
+  int lvl = 0;      // the level of the sum in acc (0: a leaf pair's)
+  bool carry = false;
+#pragma unroll 1
+  for (int k = 0; k < windows - 1; ++k) {
+    Jac p, q;
+    if (carry) {  // acc is a right sibling; its left one waits at lvl
+      p = pend_load(pend, lvl);
+      q = acc;
+      ++lvl;
+    } else {
+      const long long a = 2 * leaf * n + i;
+      p.x = fe_load(x, stride, a);
+      p.y = fe_load(y, stride, a);
+      p.z = fe_load(z, stride, a);
+      q.x = fe_load(x, stride, a + n);
+      q.y = fe_load(y, stride, a + n);
+      q.z = fe_load(z, stride, a + n);
+      lvl = 0;
+    }
+    acc = jac_add_ptx(p, q, c);
+    carry = (leaf >> lvl) & 1;  // the sum at lvl is a right child
+    if (!carry) {
+      if (k + 1 < windows - 1) pend_store(pend, lvl, acc);
+      ++leaf;
+    }
+  }
+  jac_store(o, n, i, acc);
 }
 
 // K8b.  Replaces ops/pallas_mont.py:_jac_madd_kernel (jac_madd): complete
 // Jacobian [48, W] + affine [32, W] (_kern_madd; q never the identity).
 // Bound: operations -- 11 Montgomery products per 512 bytes moved.
+// Design: one thread per point on the 64-bit-C jac_madd (g1.cuh).
+constexpr int kPointThreads = 128;
+
 __global__ void __launch_bounds__(kPointThreads)
 k8b_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ q,
            int32_t* __restrict__ o, long long w, FieldConst c) {
@@ -146,9 +235,26 @@ extern "C" int k7_jac_double_n(const void* in, void* out, long long w,
 extern "C" int k8a_jac_add(const void* a, const void* b, void* out, long long w,
                            const void* consts, void* stream) {
   if (w <= 0) return 0;
-  k8a_kernel<<<blocks_for(w, kPointThreads), kPointThreads, 0,
-               (cudaStream_t)stream>>>((const int32_t*)a, (const int32_t*)b,
-                                       (int32_t*)out, w, unpack_const(consts));
+  k8a_kernel<<<blocks_for(w, kK8aThreads), kK8aThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)a, (const int32_t*)b, (int32_t*)out, w, unpack_const(consts));
+  return (int)cudaGetLastError();
+}
+
+// x, y, z: int32 [16, windows, n] each; out: int32 [48, n].  Eight blocks
+// of 24.6 KB of pending sums per SM need the largest shared-memory carveout.
+extern "C" int k8a_window_sum(const void* x, const void* y, const void* z, void* out,
+                              long long n, int windows, const void* consts,
+                              void* stream) {
+  if (windows < 2 || windows > (2 << kWinLevels) || (windows & (windows - 1)))
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      k8a_window_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  k8a_window_kernel<<<blocks_for(n, kWinThreads), kWinThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)x, (const int32_t*)y, (const int32_t*)z, (int32_t*)out, n, windows,
+      unpack_const(consts));
   return (int)cudaGetLastError();
 }
 

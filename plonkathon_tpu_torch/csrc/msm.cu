@@ -157,31 +157,62 @@ k5_fold_kernel(const int32_t* __restrict__ dense, int32_t* up, int32_t* ex,
 // at the identity, then a complete mixed add (_kern_madd) takes the step's
 // affine base, and the running prefix is written after EVERY step.
 // The TPU carries the accumulator across its sequential S grid steps in
-// VMEM scratch; Hopper blocks run in no order, so here ONE thread owns one
-// chunk lane and loops over the S steps itself with the accumulator in
+// VMEM scratch; Hopper blocks run in no order, so here the threads of one
+// chunk lane loop over the S steps themselves with the accumulator in
 // registers.  Inputs are step-major ([S, C] digits, [S, 32, C] bases,
-// [S, 48, C] prefixes), so neighbouring threads touch neighbouring
-// addresses at every step.  Bound: operations -- 11 Montgomery products
-// (2904 32-bit multiplies) per step against 328 bytes moved per step; the
-// chain of S dependent adds per lane also makes it latency bound when C is
-// small, which is why the caller picks C large (ops/msm2.py
-// _choose_chunks).
-constexpr int kScanThreads = 64;
+// [S, 48, C] prefixes), so neighbouring lanes touch neighbouring addresses
+// at every step.  Bound: 328 bytes moved per step and, where the
+// accumulator is not the identity, 8 Montgomery products and 3 squarings
+// (2736 32-bit multiplies): on an H100 at the msm2 fallback's S 512 x
+// C 2^14 the bytes take 0.82 ms and all the adds 1.37 ms; but at 2^14
+// lanes one add per lane per step is a dependent chain and one thread per
+// lane gives the card 4 warps per SM, so the chain's latency is the floor
+// that counts (PERF.md).  Design for latency, as K4's merge scan:
+// TWO threads per lane share each add (jac_madd_core_pair: 6 products in
+// sequence each instead of 11, twice the warps), inlined with no call
+// frame, the doubling out of line; step s + 1's digits and base are
+// loaded before step s is computed; the pair stores its prefix together
+// (jac_store_pair).  Both threads of a pair compute every step, and a tail
+// pair past the last chunk mirrors it and stores nothing, so a warp's
+// shuffles never diverge.  The threads per block come from a sweep at the
+// fallback's shape (scripts/sweep_k6_k8a.py, PERF.md): at 151 registers a
+// 256-thread block fills one SM's register file, so the 2^15 threads land
+// as one block on each of 128 SMs; on an H100 that beat 64 and 128
+// threads, 3.97 against 4.45-4.52 ms (smaller blocks may stack unevenly).
+constexpr int kScanThreads = 256;
+constexpr int kScanMinBlocks = 1;
 
-__global__ void __launch_bounds__(kScanThreads)
+__global__ void __launch_bounds__(kScanThreads, kScanMinBlocks)
 k6_kernel(const int32_t* __restrict__ dig, const int32_t* __restrict__ prev,
           const int32_t* __restrict__ pts, int32_t* __restrict__ out,
           long long steps, long long chunks, FieldConst c) {
-  long long ch = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (ch >= chunks) return;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool odd = t & 1;
+  const bool in = (t >> 1) < chunks;
+  const long long ch = in ? t >> 1 : chunks - 1;  // a tail pair mirrors the last lane
+  const unsigned full = 0xffffffffu;
   Jac acc = jac_identity(c);
+  bool fresh = dig[ch] != prev[ch];
+  Fe x2 = fe_load(pts, chunks, ch);
+  Fe y2 = fe_load(pts + 16 * chunks, chunks, ch);
+#pragma unroll 1
   for (long long s = 0; s < steps; ++s) {
-    if (dig[s * chunks + ch] != prev[s * chunks + ch]) acc = jac_identity(c);
-    const int32_t* base = pts + s * 32 * chunks;
-    Fe x = fe_load(base, chunks, ch);
-    Fe y = fe_load(base + 16 * chunks, chunks, ch);
-    acc = jac_madd(acc, x, y, c);
-    jac_store(out + s * 48 * chunks, chunks, ch, acc);
+    bool fresh_next = false;
+    Fe x2_next, y2_next;
+    if (s + 1 < steps) {
+      const int32_t* base = pts + (s + 1) * 32 * chunks;
+      fresh_next = dig[(s + 1) * chunks + ch] != prev[(s + 1) * chunks + ch];
+      x2_next = fe_load(base, chunks, ch);
+      y2_next = fe_load(base + 16 * chunks, chunks, ch);
+    }
+    if (fresh) acc = jac_identity(c);
+    Fe H, R;
+    Jac r = jac_madd_core_pair(acc, x2, y2, c, odd, full, H, R);
+    acc = jac_madd_selects(r, acc, x2, y2, H, R, c);
+    if (in) jac_store_pair(out + s * 48 * chunks, chunks, ch, acc, odd);
+    fresh = fresh_next;
+    x2 = x2_next;
+    y2 = y2_next;
   }
 }
 
@@ -231,7 +262,7 @@ extern "C" int k6_run_scan(const void* dig, const void* prev, const void* pts,
                            void* out, long long steps, long long chunks,
                            const void* consts, void* stream) {
   if (steps <= 0 || chunks <= 0) return 0;
-  k6_kernel<<<blocks_for(chunks, kScanThreads), kScanThreads, 0,
+  k6_kernel<<<blocks_for(2 * chunks, kScanThreads), kScanThreads, 0,
               (cudaStream_t)stream>>>((const int32_t*)dig, (const int32_t*)prev,
                                       (const int32_t*)pts, (int32_t*)out, steps,
                                       chunks, unpack_const(consts));

@@ -49,10 +49,13 @@ class Setup:
         """Synthetic known-tau SRS for tests/benchmarks (NOT a trusted setup).
 
         Points are computed on the device: the 8-bit digits of tau^i select
-        from a host-built table T[w][b] = (b * 2^(8w)) * G, a pairwise fold
-        sums the 32 windows per point, and a batched inversion converts to
+        from a host-built table T[w][b] = (b * 2^(8w)) * G, gathered
+        window-major ([16, 32, n]), one K8a launch sums the 32 windows of
+        every point in the pairwise order of a level-by-level halving
+        (windows 2j, 2j + 1 first), and a batched inversion converts to
         affine."""
         from .ops import curve as _curve
+        from .ops.cuda_mont import jac_window_sum
         from .ops.limbs import fq as _fq
         from .ops.msm2 import affine_from_jacobian
 
@@ -79,13 +82,13 @@ class Setup:
         dig = np.frombuffer(
             b"".join(t.to_bytes(32, "little") for t in taus), dtype=np.uint8
         ).reshape(powers, 32).astype(np.int64)
-        idx = torch.from_numpy(dig + np.arange(32)[None, :] * 256).to(device)
-        gx = tx[:, idx]  # [16, n, 32]
+        idx = torch.from_numpy((dig + np.arange(32)[None, :] * 256).T.copy()).to(device)
+        gx = tx[:, idx]  # [16, 32, n]: window-major
         gy = ty[:, idx]
-        flag = torch.from_numpy(dig != 0).to(device)
+        flag = torch.from_numpy((dig != 0).T.copy()).to(device)
         gz = torch.where(flag[None], _fq.full("ONE_MONT", gx), torch.zeros_like(gx))
 
-        ax, ay = affine_from_jacobian(*_curve.jac_fold_sum((gx, gy, gz)))
+        ax, ay = affine_from_jacobian(*jac_window_sum((gx, gy, gz)))
         xs = _fq.from_mont_host_many(ax)
         ys = _fq.from_mont_host_many(ay)
         pts = [(Fq(a), Fq(b)) for a, b in zip(xs, ys)]

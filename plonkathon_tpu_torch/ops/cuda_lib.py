@@ -46,6 +46,7 @@ SIGNATURES = {
     "k4_dense_buckets": [_P, _P, _P, _P, _I64, _I64, _I32, _P, _P],
     "k5_suffix_fold": [_P, _P, _P, _I64, _P, _P],
     "k8a_jac_add": [_P, _P, _P, _I64, _P, _P],
+    "k8a_window_sum": [_P, _P, _P, _P, _I64, _I32, _P, _P],
     "k8b_jac_madd": [_P, _P, _P, _I64, _P, _P],
     "k9_butterfly": [_P, _P, _P, _P, _P, _I64, _P, _P],
 }
@@ -53,12 +54,14 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 
-# Launch counts by kernel id (K1 per field).  A wrapper adds one where it
-# launches its kernel and nowhere else, so a run can show which kernels its
-# path went through.
+# Launch counts by kernel id (K1 per field; "K8a" is Setup.generate's window
+# sum, "K8a add" the elementwise add).  A wrapper adds one where it launches
+# its kernel and nowhere else, so a run can show which kernels its path went
+# through.
 LAUNCHES = {
     k: 0
-    for k in ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K6", "K7", "K8a", "K8b", "K9")
+    for k in ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K6", "K7", "K8a", "K8a add",
+              "K8b", "K9")
 }
 
 

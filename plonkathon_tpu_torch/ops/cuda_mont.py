@@ -1,12 +1,14 @@
 """Field and point kernels: wrappers, launch counts and plain versions.
 
-Counterpart of the JAX package's `ops/pallas_mont.py`.  Six kernels live
+Counterpart of the JAX package's `ops/pallas_mont.py`.  Seven kernels live
 here (CUDA C++ in `csrc/mont.cu`, over `csrc/field.cuh` and `csrc/g1.cuh`):
 
 * K1 `mont_mul`     — elementwise Montgomery product in Fr or Fq;
 * K2 `dif_butterfly` — one Stockham DIF stage (c0 + c1, (c0 - c1) * tw);
 * K7 `jac_double_n` — n repeated Jacobian doublings over Fq;
 * K8a `jac_add`     — complete Jacobian add on coordinate triples;
+* K8a `jac_window_sum` — the sum of [16, W, n] window points over W in one
+  launch (`Setup.generate`), the adds of a level-by-level halving;
 * K8b `jac_madd`    — complete Jacobian + affine add;
 * K9 `butterfly`    — the DIT butterfly (e + o * t, e - o * t) in Fr.
 
@@ -254,7 +256,7 @@ def jac_double_n(p, n_times: int = 1):
 
 
 # ---------------------------------------------------------------------------
-# K8a / K8b: complete adds on coordinate triples.
+# K8a / K8b: complete adds on coordinate triples; K8a's window sum.
 # ---------------------------------------------------------------------------
 
 def jac_add_plain(p, q):
@@ -291,7 +293,43 @@ def jac_add(p, q):
     arrs = torch.broadcast_tensors(*p, *q)
     if not any(x.is_cuda for x in arrs):
         return jac_add_plain(p, q)
-    return _point_launch("K8a", "k8a_jac_add", arrs, 3)
+    return _point_launch("K8a add", "k8a_jac_add", arrs, 3)
+
+
+def jac_window_sum_plain(p):
+    """Sum window-major Jacobian points p = (X, Y, Z), each [16, W, n], over
+    W (a power of two) with the plain add, halving level by level: each
+    level adds windows (2j, 2j + 1), the JAX package's `curve.jac_fold_sum`
+    order."""
+    X, Y, Z = p
+    while X.shape[1] > 1:
+        X, Y, Z = jac_add_plain(
+            (X[:, 0::2], Y[:, 0::2], Z[:, 0::2]), (X[:, 1::2], Y[:, 1::2], Z[:, 1::2])
+        )
+    return (X[:, 0], Y[:, 0], Z[:, 0])
+
+
+def jac_window_sum(p):
+    """Sum window-major Jacobian points p = (X, Y, Z), each [16, W, n], over
+    the window axis W (a power of two, at most 32 on the card): [16, n]
+    coordinates.  The same adds in the same pairing as
+    `jac_window_sum_plain`, so the same raw limbs, in ONE launch."""
+    if not any(c.is_cuda for c in p):
+        return jac_window_sum_plain(p)
+    x, y, z = check_limbs(NLIMBS, *p)
+    if x.ndim != 3 or not x.shape == y.shape == z.shape:
+        raise ValueError(f"jac_window_sum: expected three [16, W, n], got {tuple(x.shape)}")
+    windows, n = x.shape[1], x.shape[2]
+    if windows < 2 or windows > 32 or windows & (windows - 1):
+        raise ValueError(f"jac_window_sum: W = {windows} is not a power of two in [2, 32]")
+    out = torch.empty((3 * NLIMBS, n), dtype=DTYPE, device=x.device)
+    rc = fn("k8a_window_sum")(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), out.data_ptr(), n, windows,
+        field_consts("fq"), stream_ptr(x.device),
+    )
+    count_launch("K8a")
+    check(rc, "k8a_window_sum")
+    return unstack_points(out, (n,))
 
 
 def jac_madd(p, q_aff):

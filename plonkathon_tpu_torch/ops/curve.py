@@ -1,4 +1,4 @@
-"""Batched G1 Jacobian arithmetic and the fixed-base MSM engine.
+"""G1 point conversion and the fixed-base MSM engine.
 
 Counterpart of the JAX package's `ops/curve.py`.  A commit of m >= 8192
 coefficients goes through the signed 16-bit-window pipeline (`ops/msm3.py`)
@@ -16,50 +16,10 @@ import torch
 
 from ..fields import FQ_MOD
 from .limbs import fq, fr, NLIMBS, DTYPE, to_device
-from .cuda_mont import _kern_double
-from . import cuda_mont, msm2, msm3
+from . import msm2, msm3
 
 WINDOW_BITS = msm2.WINDOW_BITS
 NWINDOWS = msm2.NWINDOWS
-
-
-# ---------------------------------------------------------------------------
-# Jacobian point ops (X, Y, Z limb-major tuples; Montgomery domain).
-# ---------------------------------------------------------------------------
-
-def jac_identity(batch_shape, device):
-    zero = torch.zeros((NLIMBS,) + tuple(batch_shape), dtype=DTYPE, device=device)
-    one = fq.full("ONE_MONT", zero)
-    return (one, one, zero)
-
-
-def jac_double(p):
-    """Jacobian doubling for y^2 = x^3 + b (a = 0).  Identity-safe (Z3=0)."""
-    return _kern_double(fq, p)
-
-
-def jac_add(p, q):
-    """Complete Jacobian addition (handles identity, equal, and inverse
-    pairs): the K8a kernel on CUDA tensors, the plain formula on CPU ones."""
-    return cuda_mont.jac_add(p, q)
-
-
-def jac_fold_sum(p):
-    """Sum a Jacobian point batch over its last axis (pairwise halving with
-    identity padding to a power of two)."""
-    X, Y, Z = p
-    n = X.shape[-1]
-    m = 1 << max(n - 1, 0).bit_length()
-    if m != n:
-        iX, iY, iZ = jac_identity(X.shape[1:-1] + (m - n,), X.device)
-        X, Y, Z = (torch.cat([a, b], dim=-1) for a, b in ((X, iX), (Y, iY), (Z, iZ)))
-    while m > 1:
-        X, Y, Z = jac_add(
-            (X[..., 0::2], Y[..., 0::2], Z[..., 0::2]),
-            (X[..., 1::2], Y[..., 1::2], Z[..., 1::2]),
-        )
-        m //= 2
-    return (X[..., 0], Y[..., 0], Z[..., 0])
 
 
 # ---------------------------------------------------------------------------

@@ -153,10 +153,10 @@ def _suffix_scan_stacked(arr):
 def _choose_chunks(k: int) -> int:
     """Chunk count C: a power of two near k/16, at most 2^14.
 
-    K6 runs one thread per chunk for S = k/C dependent steps, so C sets its
-    parallelism; the chunk fold costs NB * C complete adds and the bucket
-    gather NB * C points.  At the n = 2^16 commit (k = 2^21) this gives
-    C = 2^14 (128 threads per SM on 132 SMs) and S = 128.  Small commits
+    K6 runs a thread pair per chunk for S = k/C dependent steps, so C sets
+    its parallelism; the chunk fold costs NB * C complete adds and the
+    bucket gather NB * C points.  At the n = 2^16 commit (k = 2^21) this
+    gives C = 2^14 (248 threads per SM on 132 SMs) and S = 128.  Small commits
     (the 8-point fixture, k = 256) keep S = 16 steps."""
     target = max(1, min(_MAX_CHUNKS, k // _STEP_ALIGN))
     return 1 << (target.bit_length() - 1)

@@ -65,8 +65,9 @@ def test_chip_smoke_imports_no_jax():
     ).stdout.splitlines()
     assert out[0] == "[]", out
     assert out[1] == "[] []", out  # every id is required somewhere, none unknown
-    # Outside the kernel-vs-plain phase only the caller-less kernels are unnamed.
-    assert out[2] == "['K8b', 'K9']", out
+    # Outside the kernel-vs-plain phase only the caller-less kernels are
+    # unnamed (K8a's elementwise add; its window sum is on the path).
+    assert out[2] == "['K8a add', 'K8b', 'K9']", out
 
 
 @pytest.fixture

@@ -82,6 +82,27 @@ def scan_inputs(rng, steps=4, chunks=8):
     return d_t, p_t, pts
 
 
+def window_points(rng, n):
+    """Window-major (X, Y, Z) [16, 32, n], as Setup.generate gathers them:
+    point 0 is P in every window (a doubling at every level), point 1 P and
+    -P alternating (cancellation, then identity + identity), point 2 P, Q,
+    P, Q and then identities (a doubling of P + Q at level 2, Z != 1),
+    point 3 identity + P and P + identity; random coordinates elsewhere,
+    every 5th window of a point from 3 on the identity (a digit 0)."""
+    stacked = torch.cat([rand_limbs(rng, fq, 32 * n, edges=False) for _ in range(3)])
+    stacked = stacked.reshape(48, 32, n)
+    stacked[32:, ::5, 3:] = 0
+    p, neg_p = real_point(0xC0FFEE)
+    q, _ = real_point(0xBEEF)
+    ident = torch.cat([p[:32], torch.zeros_like(p[32:])])
+    stacked[:, :, 0] = p
+    stacked[:, :, 1] = torch.cat([p, neg_p], dim=1).repeat(1, 16)
+    stacked[:, :, 2] = ident
+    stacked[:, :4, 2] = torch.cat([p, q, p, q], dim=1)
+    stacked[:, :4, 3] = torch.cat([ident, p, p, ident], dim=1)
+    return coords(stacked)
+
+
 def packed_inputs(rng, which, w=W):
     """(acc [24, w], q, mask [w]) for one K3 ("madd": q packed affine
     [16, w], mask lane % 4) or K4 ("jadd": q packed Jacobian [24, w], masks
@@ -136,6 +157,19 @@ def test_cuda_k5_equals_plain(cuda):
 def test_cuda_k6_equals_plain(cuda):
     d_t, p_t, pts = (x.to(cuda) for x in scan_inputs(np.random.default_rng(13), 8, 300))
     assert torch.equal(TM.run_scan(d_t, p_t, pts), TM.run_scan_plain(d_t, p_t, pts))
+
+
+@pytest.mark.cuda
+def test_cuda_k6_ragged_warp_equals_plain(cuda):
+    """2^10 + 8 chunks: the last warp's 16 thread pairs hold 8 chunks and 8
+    mirrors of the last one, which must store nothing; chunk 0 doubles,
+    chunk 1 cancels."""
+    chunks = (1 << 10) + 8
+    d_t, p_t, pts = (x.to(cuda) for x in scan_inputs(np.random.default_rng(43), 12, chunks))
+    cuda_lib.reset_launches()
+    got = TM.run_scan(d_t, p_t, pts)
+    assert cuda_lib.LAUNCHES["K6"] == 1
+    assert torch.equal(got, TM.run_scan_plain(d_t, p_t, pts))
 
 
 def top_limbs(w, rows=16):
@@ -203,8 +237,37 @@ def test_cuda_k3_k4_equal_plain(cuda, which, steps):
 @pytest.mark.cuda
 def test_cuda_k8a_equals_plain(cuda):
     a, b = (coords(x.to(cuda)) for x in point_pairs(np.random.default_rng(17), 1000))
+    cuda_lib.reset_launches()
     got, want = CM.jac_add(a, b), CM.jac_add_plain(a, b)
+    assert cuda_lib.LAUNCHES["K8a add"] == 1 and cuda_lib.LAUNCHES["K8a"] == 0
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_k8a_window_sum_equals_plain(cuda):
+    """One launch sums the 32 windows of 2^10 points (identity windows,
+    doublings and cancellations at every level) as the plain halving does,
+    in raw limbs; narrower trees too."""
+    p = tuple(c.to(cuda) for c in window_points(np.random.default_rng(42), 1 << 10))
+    cuda_lib.reset_launches()
+    got = CM.jac_window_sum(p)
+    assert cuda_lib.LAUNCHES["K8a"] == 1
+    assert all(torch.equal(g, w) for g, w in zip(got, CM.jac_window_sum_plain(p)))
+    for windows in (2, 4, 16):
+        sub = tuple(c[:, :windows].contiguous() for c in p)
+        got = CM.jac_window_sum(sub)
+        assert all(torch.equal(g, w) for g, w in zip(got, CM.jac_window_sum_plain(sub)))
+
+
+@pytest.mark.cuda
+def test_cuda_setup_generate_one_window_launch(cuda):
+    """Setup.generate on the card: one K8a launch, the CPU route's SRS."""
+    from plonkathon_tpu_torch import Setup
+
+    cuda_lib.reset_launches()
+    got = Setup.generate(2**6, device=cuda)
+    assert cuda_lib.LAUNCHES["K8a"] == 1 and cuda_lib.LAUNCHES["K8a add"] == 0
+    assert got.powers_of_x == Setup.generate(2**6, device="cpu").powers_of_x
 
 
 @pytest.mark.cuda
