@@ -11,7 +11,9 @@ Phases, each printing its lines:
      commits, four-step NTTs and its one msm2 fallback commit) plus edge
      lanes -- among them one whole msm3 suffix fold (one K5 launch) against
      the same fold on CPU copies, all J dense-bucket rounds (one K4 launch)
-     and the 32-window sum of 2^18 points (one K8a launch): equal raw
+     and the 32-window sum of 2^18 points (one K8a launch), and the
+     elementwise K8a add and K8b once more, equality only, at a ragged width
+     on a column slice and a [16, 1] broadcast: equal raw
      limbs, kernel and plain times from CUDA events, the bound (bytes over
      3.35 TB/s vs 32-bit multiplies, products and squarings counted apart,
      over the card's integer multiply rate) and ptxas's registers, stack
@@ -402,7 +404,7 @@ def check_kernels(torch, np) -> list[dict]:
     msm3 commits and four-step NTTs, and the one msm2 fallback commit at
     m = 2^18 (K6's scan, K5's widest chunk-fold level, K7's 8-doubling
     table step); the elementwise K8a, K8b and K9, which no path calls, at
-    width 2^20."""
+    width 2^20, and K8a and K8b again at a ragged width on views."""
     from plonkathon_tpu_torch.ops import cuda_lib, cuda_mont as CM, msm2, msm3
     from plonkathon_tpu_torch.ops.limbs import fq, fr
 
@@ -535,12 +537,12 @@ def check_kernels(torch, np) -> list[dict]:
     cases.append(dict(
         kernel="K8a add", fn="k8a_kernel", name="K8a jac_add", width=w,
         run=lambda: CM.jac_add(ca, cb), plain=lambda: CM.jac_add_plain(ca, cb),
-        nbytes=3 * 192 * w, muls=_muls(OPS_JADD, w),
+        nbytes=3 * 192 * w, muls=_muls(OPS_JADD, w), profiled=True,
     ))
     cases.append(dict(
         kernel="K8b", fn="k8b_kernel", name="K8b jac_madd", width=w,
         run=lambda: CM.jac_madd(ca, cb[:2]), plain=lambda: CM.jac_madd_plain(ca, cb[:2]),
-        nbytes=(192 + 128 + 192) * w, muls=_muls(OPS_MADD, w),
+        nbytes=(192 + 128 + 192) * w, muls=_muls(OPS_MADD, w), profiled=True,
     ))
     e9, o9, t9 = (_lazy(torch, np, rng, fr, w) for _ in range(3))
     cases.append(dict(
@@ -594,6 +596,24 @@ def check_kernels(torch, np) -> list[dict]:
             rec["device_ms"] = device_breakdown(torch, c["run"])["device_ms"]
             print(f"[3] {c['name']}: {rec['device_ms']:.4f} ms on the device "
                   f"(torch.profiler)", flush=True)
+    # The elementwise adds once more, equality only, at a ragged width on
+    # views that reach the kernels without a copy: p the first wr columns of
+    # wider coordinates, q broadcast from [16, 1] (lane 2 of b, P: lanes 0-3
+    # add identity + P, P + P twice and -P + P).
+    wr = (1 << 10) + 37
+    ra, rb = _points(torch, np, rng, 2 * wr)
+    pv = tuple(ra[16 * i : 16 * (i + 1), :wr] for i in range(3))
+    qv = tuple(rb[16 * i : 16 * (i + 1), 2:3] for i in range(3))
+    for name, run, plain in (
+        ("K8a jac_add", lambda: CM.jac_add(pv, qv), lambda: CM.jac_add_plain(pv, qv)),
+        ("K8b jac_madd", lambda: CM.jac_madd(pv, qv[:2]), lambda: CM.jac_madd_plain(pv, qv[:2])),
+    ):
+        err = _max_err(torch, run(), plain())
+        if err != 0:
+            fail(f"{name} at width {wr} on views differs from its plain version "
+                 f"(max abs err {err})")
+        print(f"[3] {name}: width {wr}, p a column slice, q broadcast from [16, 1]: "
+              f"equal raw limbs (max abs err {err})", flush=True)
     return records
 
 

@@ -31,32 +31,57 @@ __device__ __forceinline__ void jac_store(int32_t* base, long long w,
   fe_store(base + 32 * w, w, i, p.z);
 }
 
+// A coordinate handed over as the caller's view (the elementwise point
+// kernels): limb k of element i at p[k * limb + i * col], where col is 1,
+// or 0 for a coordinate broadcast from [16, 1].
+struct Operand {
+  const int32_t* p;
+  long long limb;
+  long long col;
+};
+
+template <int N>
+struct Operands {
+  Operand c[N];
+};
+
+// The operands from their pointers and a host int64 (limb, column) pair each.
+template <int N>
+inline Operands<N> make_operands(const void* const (&ptrs)[N], const long long* strides) {
+  Operands<N> ops;
+  for (int k = 0; k < N; ++k)
+    ops.c[k] = Operand{(const int32_t*)ptrs[k], strides[2 * k], strides[2 * k + 1]};
+  return ops;
+}
+
+__device__ __forceinline__ Fe fe_load_op(const Operand& o, long long i) {
+  const int32_t* b = o.p + i * o.col;
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    uint32_t lo = (uint32_t)b[(2 * k) * o.limb];
+    uint32_t hi = (uint32_t)b[(2 * k + 1) * o.limb];
+    r.w[k] = (lo & 0xFFFFu) | (hi << 16);
+  }
+  return r;
+}
+
+// The Jacobian point of operands first .. first + 2 at element i.
+template <int N>
+__device__ __forceinline__ Jac jac_load_op(const Operands<N>& ops, int first, long long i) {
+  Jac p;
+  p.x = fe_load_op(ops.c[first], i);
+  p.y = fe_load_op(ops.c[first + 1], i);
+  p.z = fe_load_op(ops.c[first + 2], i);
+  return p;
+}
+
 __device__ __forceinline__ Jac jac_identity(const FieldConst& c) {
   Jac p;
   p.x = fe_const(c.one);
   p.y = fe_const(c.one);
   p.z = fe_zero();
   return p;
-}
-
-// _kern_double: 5 squarings + 2 products.  Static: both sources include
-// this header and link into one library.
-static __device__ __noinline__ Jac jac_double(const Jac& p, const FieldConst& c) {
-  Fe A = fe_mul(p.x, p.x, c);
-  Fe B = fe_mul(p.y, p.y, c);
-  Fe C = fe_mul(B, B, c);
-  Fe xb = fe_add(p.x, B, c);
-  Fe D = fe_sub(fe_mul(xb, xb, c), fe_add(A, C, c), c);
-  D = fe_add(D, D, c);
-  Fe E = fe_add(fe_add(A, A, c), A, c);
-  Fe F = fe_mul(E, E, c);
-  Jac r;
-  r.x = fe_sub(F, fe_add(D, D, c), c);
-  Fe C2 = fe_add(C, C, c);
-  Fe C8 = fe_add(fe_add(C2, C2, c), fe_add(C2, C2, c), c);
-  r.y = fe_sub(fe_mul(E, fe_sub(D, r.x, c), c), C8, c);
-  r.z = fe_mul(fe_add(p.y, p.y, c), p.z, c);
-  return r;
 }
 
 // _kern_double on the carry-chain arithmetic (field.cuh), inlined: K7's
@@ -145,9 +170,11 @@ __device__ __forceinline__ Jac jac_add_ptx(const Jac& p, const Jac& q,
 // ---------------------------------------------------------------------------
 // Two threads per add.  Where a lane's adds form a dependent chain and the
 // lanes are too few to fill the SMs (K4's merge scan, the narrow levels of
-// K5's suffix fold), the latency of one add is what costs.  The threads
-// 2k and 2k + 1 of a warp both hold p and q and split the 16 products of
-// jac_add_core_ptx into four rounds, exchanging results by __shfl_xor_sync:
+// K5's suffix fold), or where an add's registers leave too few warps per
+// SM to hide its latency (the elementwise K8a add), the latency of one add
+// is what costs.  The threads 2k and 2k + 1 of a warp both hold p and q and
+// split the 16 products of jac_add_core_ptx into four rounds, exchanging
+// results by __shfl_xor_sync:
 //   1. Z1^2 | Z2^2;
 //   2. U1 = X1 Z2^2, S1 = Y1 (Z2 Z2^2) | U2 = X2 Z1^2, S2 = Y2 (Z1 Z1^2);
 //   3. HH = H^2, HHH = H HH, V = U1 HH | R^2, Z1Z2 = Z1 Z2, Z3 = Z1Z2 H;
@@ -225,35 +252,6 @@ __device__ __forceinline__ void jac_store_pair(int32_t* base, long long w, long 
   }
 }
 
-// _kern_madd: complete Jacobian + affine (q never the identity).
-__device__ __forceinline__ Jac jac_madd(const Jac& p, const Fe& x2,
-                                        const Fe& y2, const FieldConst& c) {
-  Fe Z1Z1 = fe_mul(p.z, p.z, c);
-  Fe U2 = fe_mul(x2, Z1Z1, c);
-  Fe S2 = fe_mul(y2, fe_mul(p.z, Z1Z1, c), c);
-  Fe H = fe_sub(U2, p.x, c);
-  Fe R = fe_sub(S2, p.y, c);
-  Fe HH = fe_mul(H, H, c);
-  Fe HHH = fe_mul(H, HH, c);
-  Fe V = fe_mul(p.x, HH, c);
-  Jac r;
-  r.x = fe_sub(fe_sub(fe_mul(R, R, c), HHH, c), fe_add(V, V, c), c);
-  r.y = fe_sub(fe_mul(R, fe_sub(V, r.x, c), c), fe_mul(p.y, HHH, c), c);
-  r.z = fe_mul(p.z, H, c);
-
-  bool p_inf = fe_is_zero(p.z, c);
-  bool h_zero = fe_is_zero(H, c) && !p_inf;
-  bool r_zero = fe_is_zero(R, c);
-  if (h_zero && r_zero) r = jac_double(p, c);
-  if (h_zero && !r_zero) r.z = fe_zero();
-  if (p_inf) {
-    r.x = x2;
-    r.y = y2;
-    r.z = fe_const(c.one);
-  }
-  return r;
-}
-
 // ---------------------------------------------------------------------------
 // _kern_madd on a thread pair (K6's run-scan).  The chain of _kern_madd is
 // Z1^2 -> Z1^3 -> S2 -> R^2 -> R (V - X3): the threads 2k and 2k + 1 of a
@@ -302,9 +300,9 @@ __device__ __forceinline__ Jac jac_madd_core_pair(const Jac& p, const Fe& x2, co
   return r;
 }
 
-// _kern_madd's selects on the sum r of jac_madd_core_pair: the doubling
-// (out of line) where p == q, Z = 0 where p == -q, q itself where p is
-// the identity.
+// _kern_madd's selects on the sum r of jac_madd_core_pair or
+// jac_madd_core_ptx: the doubling (out of line) where p == q, Z = 0 where
+// p == -q, q itself where p is the identity.
 __device__ __forceinline__ Jac jac_madd_selects(Jac r, const Jac& p, const Fe& x2,
                                                 const Fe& y2, const Fe& H, const Fe& R,
                                                 const FieldConst& c) {
@@ -319,4 +317,39 @@ __device__ __forceinline__ Jac jac_madd_selects(Jac r, const Jac& p, const Fe& x
     r.z = fe_const(c.one);
   }
   return r;
+}
+
+// The arithmetic of _kern_madd on the carry chains, one thread per add,
+// without the selects: 8 products and 3 squarings, with H and R returned
+// for jac_madd_selects.  Ordered as jac_add_core_ptx, independent products
+// side by side: Z1^2; U2 | Z1^3; S2; HH | R^2; HHH | V | Z3; Y1 HHH |
+// R (V - X3).  Every product has _kern_madd's operands (a square is the
+// squaring of field.cuh, the same integer as the product), so the words
+// are the TPU body's.
+__device__ __forceinline__ Jac jac_madd_core_ptx(const Jac& p, const Fe& x2, const Fe& y2,
+                                                 const FieldConst& c, Fe& H, Fe& R) {
+  Fe Z1Z1 = fe_sqr_ptx(p.z, c);
+  Fe U2 = fe_mul_ptx(x2, Z1Z1, c);
+  Fe Z1c = fe_mul_ptx(p.z, Z1Z1, c);
+  Fe S2 = fe_mul_ptx(y2, Z1c, c);
+  H = fe_sub_ptx(U2, p.x, c);
+  R = fe_sub_ptx(S2, p.y, c);
+  Fe HH = fe_sqr_ptx(H, c);
+  Fe RR = fe_sqr_ptx(R, c);
+  Fe HHH = fe_mul_ptx(H, HH, c);
+  Fe V = fe_mul_ptx(p.x, HH, c);
+  Jac r;
+  r.z = fe_mul_ptx(p.z, H, c);
+  r.x = fe_sub_ptx(fe_sub_ptx(RR, HHH, c), fe_add_ptx(V, V, c), c);
+  Fe Y1HHH = fe_mul_ptx(p.y, HHH, c);
+  r.y = fe_sub_ptx(fe_mul_ptx(R, fe_sub_ptx(V, r.x, c), c), Y1HHH, c);
+  return r;
+}
+
+// _kern_madd on the carry chains, one thread per add (K8b).
+__device__ __forceinline__ Jac jac_madd_ptx(const Jac& p, const Fe& x2, const Fe& y2,
+                                            const FieldConst& c) {
+  Fe H, R;
+  Jac r = jac_madd_core_ptx(p, x2, y2, c, H, R);
+  return jac_madd_selects(r, p, x2, y2, H, R, c);
 }

@@ -3,11 +3,12 @@
 // jac_madd, K9 butterfly.  Plain C entry points for ctypes; each launches
 // on the caller's stream, allocates nothing, and returns cudaGetLastError().
 //
-// Design, shared by all: one thread per element, 16-bit limbs
-// repacked into 8 x 32-bit words at load (ops/limbs.py wire format, limb-
-// major so each limb row is one coalesced load), CIOS Montgomery product
-// with 64-bit partial products (field.cuh) -- except K7 and K8a, which run
-// on field.cuh's carry-chain product and squaring.
+// Design, shared by all but the K8a add (a thread pair per add): one
+// thread per element, 16-bit limbs repacked into 8 x 32-bit words at load
+// (ops/limbs.py wire format, limb-major so each limb row is one coalesced
+// load), CIOS Montgomery product with 64-bit partial products (field.cuh)
+// -- except the point kernels K7, K8a and K8b, which run on field.cuh's
+// carry-chain product and squaring.
 #include "field.cuh"
 #include "g1.cuh"
 
@@ -70,24 +71,6 @@ k7_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
 #pragma unroll 1
   for (int k = 0; k < n_times; ++k) p = jac_double_ptx(p, c);
   jac_store(out, w, i, p);
-}
-
-// K8a.  Replaces ops/pallas_mont.py:_jac_add_kernel (jac_add): complete
-// Jacobian + Jacobian on stacked [48, W] triples (_kern_add).  Bound:
-// operations -- 12 Montgomery products and 4 squarings (4000 32-bit
-// multiplies) per 576 bytes moved.  Design: K5's (csrc/msm.cu k5_kernel),
-// one thread per point, the add inlined on the carry chains (jac_add_ptx)
-// with the doubling out of line, 64 threads x 8 minimum blocks per SM.
-// No path calls it: Setup.generate's window sum is k8a_window_kernel.
-constexpr int kK8aThreads = 64;
-constexpr int kK8aMinBlocks = 8;
-
-__global__ void __launch_bounds__(kK8aThreads, kK8aMinBlocks)
-k8a_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-           int32_t* __restrict__ o, long long w, FieldConst c) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= w) return;
-  jac_store(o, w, i, jac_add_ptx(jac_load(a, w, i), jac_load(b, w, i), c));
 }
 
 // K8a, Setup.generate's window sum (the JAX package's jac_fold_sum of
@@ -172,20 +155,55 @@ k8a_window_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
   jac_store(o, n, i, acc);
 }
 
-// K8b.  Replaces ops/pallas_mont.py:_jac_madd_kernel (jac_madd): complete
-// Jacobian [48, W] + affine [32, W] (_kern_madd; q never the identity).
-// Bound: operations -- 11 Montgomery products per 512 bytes moved.
-// Design: one thread per point on the 64-bit-C jac_madd (g1.cuh).
-constexpr int kPointThreads = 128;
+// ---------------------------------------------------------------------------
+// K8a add and K8b: elementwise complete adds.
+//
+// K8a add replaces ops/pallas_mont.py:445 _jac_add_kernel (jac_add):
+// Jacobian + Jacobian (_kern_add).  K8b replaces ops/pallas_mont.py:454
+// _jac_madd_kernel (jac_madd): Jacobian + affine (_kern_madd; q never the
+// identity).  Operands: one pointer per coordinate, [16, W] int32 limbs,
+// each with its own limb stride and a column stride of 1, or 0 for a
+// coordinate broadcast from [16, 1] (g1.cuh Operand), so the wrapper hands
+// its views over without a copy; the output is stacked [48, W].
+// Bound: operations.  K8a add: 12 products and 4 squarings (4000 32-bit
+// multiplies) per 576 bytes, 0.251 ms at W = 2^20 on an H100 against 0.180
+// ms for the bytes; K8b: 8 and 3 (2736) per 512 bytes, 0.172 against 0.160
+// ms.  What holds both back is the latency of the dependent products: an
+// add's operands and temporaries fill 128 registers, so few warps share an
+// SM to hide it.
+// Design (scripts/sweep_k8.py, PERF.md): both on the carry chains with no
+// call frame, the doubling out of line, at 256 threads x 2 blocks per SM
+// (128 registers; the K8a add spills 16 bytes), which beat every other
+// block size at the same 16 warps by 11-17%.  K8b runs one thread per add
+// (jac_madd_ptx), the K8a add a thread pair per add (jac_add_pair: each
+// thread 8 of the 16 products in sequence), each the faster of the two
+// schedules for its add.  Staging each thread's next point in shared
+// memory by cp.async was slower for both (scripts/sweep_k8_variants.cu):
+// two stages of a thread's limb rows leave room for 8-10 warps per SM.
+// ---------------------------------------------------------------------------
+constexpr int kK8aThreads = 256;  // 128 adds
+constexpr int kK8aMinBlocks = 2;
+constexpr int kK8bThreads = 256;
+constexpr int kK8bMinBlocks = 2;
 
-__global__ void __launch_bounds__(kPointThreads)
-k8b_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ q,
-           int32_t* __restrict__ o, long long w, FieldConst c) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// Threads 2i and 2i + 1 share add i; every lane of a warp reaches the
+// pair's shuffles, so a pair past the end mirrors the last add and stores
+// nothing.
+__global__ void __launch_bounds__(kK8aThreads, kK8aMinBlocks)
+k8a_kernel(Operands<6> ops, int32_t* __restrict__ o, long long w, FieldConst c) {
+  const long long t = (long long)blockIdx.x * kK8aThreads + threadIdx.x;
+  const bool odd = t & 1;
+  const long long i = min(t >> 1, w - 1);
+  Jac r = jac_add_pair(jac_load_op(ops, 0, i), jac_load_op(ops, 3, i), c, odd, 0xffffffffu);
+  if ((t >> 1) < w) jac_store_pair(o, w, i, r, odd);
+}
+
+__global__ void __launch_bounds__(kK8bThreads, kK8bMinBlocks)
+k8b_kernel(Operands<5> ops, int32_t* __restrict__ o, long long w, FieldConst c) {
+  const long long i = (long long)blockIdx.x * kK8bThreads + threadIdx.x;
   if (i >= w) return;
-  Fe x2 = fe_load(q, w, i);
-  Fe y2 = fe_load(q + 16 * w, w, i);
-  jac_store(o, w, i, jac_madd(jac_load(a, w, i), x2, y2, c));
+  jac_store(o, w, i, jac_madd_ptx(jac_load_op(ops, 0, i), fe_load_op(ops.c[3], i),
+                                  fe_load_op(ops.c[4], i), c));
 }
 
 // K9.  Replaces ops/pallas_mont.py:_butterfly_kernel (butterfly): the
@@ -232,14 +250,6 @@ extern "C" int k7_jac_double_n(const void* in, void* out, long long w,
   return (int)cudaGetLastError();
 }
 
-extern "C" int k8a_jac_add(const void* a, const void* b, void* out, long long w,
-                           const void* consts, void* stream) {
-  if (w <= 0) return 0;
-  k8a_kernel<<<blocks_for(w, kK8aThreads), kK8aThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)a, (const int32_t*)b, (int32_t*)out, w, unpack_const(consts));
-  return (int)cudaGetLastError();
-}
-
 // x, y, z: int32 [16, windows, n] each; out: int32 [48, n].  Eight blocks
 // of 24.6 KB of pending sums per SM need the largest shared-memory carveout.
 extern "C" int k8a_window_sum(const void* x, const void* y, const void* z, void* out,
@@ -258,12 +268,26 @@ extern "C" int k8a_window_sum(const void* x, const void* y, const void* z, void*
   return (int)cudaGetLastError();
 }
 
-extern "C" int k8b_jac_madd(const void* a, const void* q, void* out, long long w,
+// p = (x1, y1, z1) and q = (x2, y2[, z2]): int32 [16, w] limbs each, with
+// strides: a host int64 (limb, column) pair per operand, in that order;
+// out: int32 [48, w].
+extern "C" int k8a_jac_add(const void* x1, const void* y1, const void* z1, const void* x2,
+                           const void* y2, const void* z2, const long long* strides,
+                           void* out, long long w, const void* consts, void* stream) {
+  if (w <= 0) return 0;
+  const void* ptrs[6] = {x1, y1, z1, x2, y2, z2};
+  k8a_kernel<<<blocks_for(2 * w, kK8aThreads), kK8aThreads, 0, (cudaStream_t)stream>>>(
+      make_operands<6>(ptrs, strides), (int32_t*)out, w, unpack_const(consts));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k8b_jac_madd(const void* x1, const void* y1, const void* z1, const void* x2,
+                            const void* y2, const long long* strides, void* out, long long w,
                             const void* consts, void* stream) {
   if (w <= 0) return 0;
-  k8b_kernel<<<blocks_for(w, kPointThreads), kPointThreads, 0,
-               (cudaStream_t)stream>>>((const int32_t*)a, (const int32_t*)q,
-                                       (int32_t*)out, w, unpack_const(consts));
+  const void* ptrs[5] = {x1, y1, z1, x2, y2};
+  k8b_kernel<<<blocks_for(w, kK8bThreads), kK8bThreads, 0, (cudaStream_t)stream>>>(
+      make_operands<5>(ptrs, strides), (int32_t*)out, w, unpack_const(consts));
   return (int)cudaGetLastError();
 }
 

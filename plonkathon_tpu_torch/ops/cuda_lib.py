@@ -45,9 +45,9 @@ SIGNATURES = {
     "k4_jadd_packed": [_P, _P, _P, _P, _I64, _I64, _P, _P],
     "k4_dense_buckets": [_P, _P, _P, _P, _I64, _I64, _I32, _P, _P],
     "k5_suffix_fold": [_P, _P, _P, _I64, _P, _P],
-    "k8a_jac_add": [_P, _P, _P, _I64, _P, _P],
+    "k8a_jac_add": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "k8a_window_sum": [_P, _P, _P, _P, _I64, _I32, _P, _P],
-    "k8b_jac_madd": [_P, _P, _P, _I64, _P, _P],
+    "k8b_jac_madd": [_P, _P, _P, _P, _P, _P, _P, _I64, _P, _P],
     "k9_butterfly": [_P, _P, _P, _P, _P, _I64, _P, _P],
 }
 

@@ -47,18 +47,20 @@ def field_consts(field: str):
     return buf
 
 
-def check_limbs(rows: int, *xs) -> list:
-    """Validate kernel operands: CUDA, int32, `rows` limb rows, one device.
-    Returns them contiguous."""
+def check_operands(rows: int, *xs) -> None:
+    """Validate kernel operands: CUDA, int32, `rows` limb rows, one device."""
     dev = xs[0].device
-    out = []
     for x in xs:
         if not x.is_cuda or x.device != dev:
             raise ValueError("kernel operands must all be on one CUDA device")
         if x.dtype != DTYPE or x.shape[0] != rows:
             raise ValueError(f"expected int32[{rows}, ...] limbs, got {x.dtype} {tuple(x.shape)}")
-        out.append(x.contiguous())
-    return out
+
+
+def check_limbs(rows: int, *xs) -> list:
+    """Validate kernel operands (`check_operands`); returns them contiguous."""
+    check_operands(rows, *xs)
+    return [x.contiguous() for x in xs]
 
 
 def _width(x) -> int:
@@ -220,7 +222,18 @@ def _kern_madd(k, p, q_aff):
 # ---------------------------------------------------------------------------
 
 def stack_points(coords, w: int):
-    """Coordinate tuple of [16, *batch] -> stacked [len*16, W]."""
+    """Coordinate tuple of [16, *batch] -> stacked [len*16, W].  Where the
+    coordinates are consecutive 16-row blocks of one contiguous tensor (as
+    `unstack_points` hands them out), those rows of the parent, no copy."""
+    first = coords[0]
+    step = NLIMBS * w
+    if all(
+        c.is_contiguous() and c.dtype == first.dtype and c.numel() == step
+        and c.untyped_storage().data_ptr() == first.untyped_storage().data_ptr()
+        and c.storage_offset() == first.storage_offset() + k * step
+        for k, c in enumerate(coords)
+    ):
+        return first.as_strided((len(coords) * NLIMBS, w), (w, 1))
     return torch.cat([c.reshape(NLIMBS, w) for c in coords], dim=0)
 
 
@@ -269,18 +282,34 @@ def jac_madd_plain(p, q_aff):
     return _kern_madd(fq_plain, arrs[:3], arrs[3:])
 
 
-def _point_launch(kernel: str, entry: str, arrs, nq: int):
-    """Stack the broadcast coordinates of p (3) and q (nq), launch, unstack."""
+def point_operand(x, w: int):
+    """(view, limb stride, column stride) of a broadcast [16, *batch]
+    coordinate as the point kernels address it: limb k of element i at
+    view[k * limb + i * col].  A view whose batch flattens to one axis of
+    stride 1 (a contiguous tensor, or rows of one) or 0 (a broadcast from
+    [16, 1]) goes as it is; any other operand is made contiguous, the only
+    copy."""
+    try:
+        v = x.view(NLIMBS, w)
+    except RuntimeError:  # the batch axes do not flatten without a copy
+        v = None
+    if v is None or (w > 1 and v.stride(1) not in (0, 1)):
+        v = x.contiguous().view(NLIMBS, w)
+    return v, v.stride(0), v.stride(1) if w > 1 else 0
+
+
+def _point_launch(kernel: str, entry: str, arrs):
+    """Launch on the broadcast coordinates of p (3) and q (2 or 3), each
+    handed over as a view (`point_operand`); unstack the [48, W] output."""
+    check_operands(NLIMBS, *arrs)
     shape_tail = arrs[0].shape[1:]
     w = _width(arrs[0])
-    (a,) = check_limbs(3 * NLIMBS, stack_points(arrs[:3], w))
-    (b,) = check_limbs(nq * NLIMBS, stack_points(arrs[3:], w))
-    if a.device != b.device:
-        raise ValueError("kernel operands must all be on one CUDA device")
-    out = torch.empty_like(a)
+    ops = [point_operand(x, w) for x in arrs]
+    strides = (ctypes.c_longlong * (2 * len(ops)))(*(s for _, *ls in ops for s in ls))
+    out = torch.empty((3 * NLIMBS, w), dtype=DTYPE, device=arrs[0].device)
     rc = fn(entry)(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), w, field_consts("fq"),
-        stream_ptr(a.device),
+        *(v.data_ptr() for v, _, _ in ops), strides, out.data_ptr(), w,
+        field_consts("fq"), stream_ptr(out.device),
     )
     count_launch(kernel)
     check(rc, entry)
@@ -293,7 +322,7 @@ def jac_add(p, q):
     arrs = torch.broadcast_tensors(*p, *q)
     if not any(x.is_cuda for x in arrs):
         return jac_add_plain(p, q)
-    return _point_launch("K8a add", "k8a_jac_add", arrs, 3)
+    return _point_launch("K8a add", "k8a_jac_add", arrs)
 
 
 def jac_window_sum_plain(p):
@@ -338,7 +367,7 @@ def jac_madd(p, q_aff):
     arrs = torch.broadcast_tensors(*p, *q_aff)
     if not any(x.is_cuda for x in arrs):
         return jac_madd_plain(p, q_aff)
-    return _point_launch("K8b", "k8b_jac_madd", arrs, 2)
+    return _point_launch("K8b", "k8b_jac_madd", arrs)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ transcript, the linearization algebra, ~20-term MSMs with the host
 Pippenger in ec.py, and pairings over the in-repo BN254 implementation.
 Vanilla PLONK layout: the custom-gate and PlonKup extensions of the JAX
 package's verifier arrive with the prover extensions (ROADMAP Queue 1,
-item 9).
+items 1-2).
 """
 
 from __future__ import annotations
@@ -53,17 +53,38 @@ def _valid_fr(s) -> bool:
         return False
 
 
-def _lagrange_eval(values, group_order: int, zeta: Fr) -> Fr:
-    """Barycentric evaluation at zeta of Lagrange values given sparsely
-    (the public inputs): (zeta^n - 1)/n * sum_i v_i w^i / (zeta - w^i)."""
-    w = Fr.root_of_unity(group_order)
+def _halving_keeps(i: int, length: int) -> bool:
+    """Whether term i survives the reference's pairwise halving sum over
+    `length` terms (`_treesum`, JAX ops/ntt.py), which adds [:half] to
+    [half:2 half] at each level and so drops the odd last term of every
+    level whose width is odd."""
+    while length > 1:
+        half = length // 2
+        if i >= 2 * half:
+            return False
+        if i >= half:
+            i -= half
+        length = half
+    return True
+
+
+def _public_eval(public, group_order: int, zeta: Fr) -> Fr:
+    """PI(zeta) exactly as the reference computes it for any length: the
+    Lagrange values [-x for x in public], zero-padded to L = max(n,
+    len(public)), evaluated barycentrically over L points,
+    (zeta^L - 1)/L * sum_i v_i w^i / (zeta - w^i), with w = 5^((r-1)//L)
+    (a root of unity only where L divides r - 1; the reference asserts
+    nothing) and the terms summed as the reference's halving sums them.
+    Zero values add nothing, so only the non-zero entries are walked."""
+    length = max(group_order, len(public))
+    w = Fr(5) ** ((FR_MOD - 1) // length)
     acc = Fr(0)
-    wi = Fr(1)
-    for v in values:
-        if int(v) != 0:
-            acc = acc + Fr(v) * wi / (zeta - wi)
-        wi = wi * w
-    return acc * (zeta**group_order - 1) / group_order
+    for i, x in enumerate(public):
+        v = Fr(-x)
+        if v.n != 0 and _halving_keeps(i, length):
+            wi = w**i
+            acc = acc + v * wi / (zeta - wi)
+    return acc * (zeta**length - 1) / length
 
 
 @dataclass
@@ -105,7 +126,7 @@ class VerificationKey:
     def _common_evals(self, group_order: int, zeta: Fr, public):
         zh_ev = zeta**group_order - 1
         l0_ev = zh_ev / (group_order * (zeta - 1))
-        pi_ev = _lagrange_eval([Fr(-x) for x in public], group_order, zeta)
+        pi_ev = _public_eval(public, group_order, zeta)
         return zh_ev, l0_ev, pi_ev
 
     # -- optimized: one combined pairing check ----------------------------

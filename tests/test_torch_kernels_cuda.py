@@ -278,6 +278,37 @@ def test_cuda_k8b_equals_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w", [(1 << 10) + 37, 1 << 20])
+def test_cuda_k8_operand_views_equal_plain(cuda, w):
+    """K8a add and K8b on the operand views the wrappers hand over without
+    a copy -- rows of one [48, w], q broadcast from [16, 1] (a column of a
+    wider tensor, and a tensor of its own), the first w columns of a wider
+    tensor -- and on a non-contiguous p (every other column), which the
+    wrapper copies.  Lanes 0-4 of point_pairs: identity + P, P + identity,
+    P + P, -P + P, P + Q; against q = P broadcast they add identity + P,
+    P + P twice, -P + P and P + P."""
+    rng = np.random.default_rng(20)
+    a, b = (x.to(cuda) for x in point_pairs(rng, w))
+    wide, _ = point_pairs(rng, 2 * w)
+    wide = wide.to(cuda)
+    pc, qc = coords(a), coords(b)
+    cases = [
+        (pc, qc),
+        (pc, tuple(c[:, 2:3] for c in qc)),
+        (pc, tuple(c[:, 2:3].contiguous() for c in qc)),
+        (tuple(c[:, :w] for c in coords(wide)), qc),
+        (tuple(c[:, ::2] for c in coords(wide)), qc),
+    ]
+    for p, q in cases:
+        cuda_lib.reset_launches()
+        got = CM.jac_add(p, q)
+        got_m = CM.jac_madd(p, q[:2])
+        assert cuda_lib.LAUNCHES["K8a add"] == 1 and cuda_lib.LAUNCHES["K8b"] == 1
+        assert all(torch.equal(g, x) for g, x in zip(got, CM.jac_add_plain(p, q)))
+        assert all(torch.equal(g, x) for g, x in zip(got_m, CM.jac_madd_plain(p, q[:2])))
+
+
+@pytest.mark.cuda
 def test_cuda_k9_equals_plain(cuda):
     rng = np.random.default_rng(19)
     e, o = (rand_limbs(rng, fr, 96).reshape(16, 3, 8, 4).to(cuda) for _ in range(2))
