@@ -11,7 +11,9 @@ Phases, each printing its lines:
      commits, four-step NTTs and its one msm2 fallback commit) plus edge
      lanes -- among them one whole msm3 suffix fold (one K5 launch) against
      the same fold on CPU copies, all J dense-bucket rounds (one K4 launch)
-     and the 32-window sum of 2^18 points (one K8a launch), and the
+     and the 32-window sum of 2^18 points (one K8a launch), K2's stage
+     over both of round 3's stacks (15 rows for the chain, 27 for turbo +
+     lookup), and the
      elementwise K8a add and K8b once more, equality only, at a ragged width
      on a column slice and a [16, 1] broadcast: equal raw
      limbs, kernel and plain times from CUDA events, the bound (bytes over
@@ -30,11 +32,22 @@ Phases, each printing its lines:
   8. msm3 commits at m = 2^18 against the exact oracle p(tau) * G (the
      synthetic SRS's tau is known): random coefficients, a crafted
      multiplicity overflow that must fall back to msm2, and both through
-     commit_batch.
+     commit_batch;
+  9. TurboPlonK cube gates + PlonKup lookups (models/examples.py
+     turbo_lookup_program): (a) the smallest such circuit on the ceremony
+     SRS proved with debug checks on the card and on the CPU (the plain
+     versions), the two proofs equal field for field, both verifiers
+     accepting it and rejecting it with one lookup opening changed; (b) the
+     circuit at n = 2^18 (2^18 - 8 gates, table_bits 8) on phase 7's SRS
+     with a fresh commit engine (the cold proof builds its window tables),
+     a cold and a warm proof and a profiled one, both verifiers accepting;
+     the commits over msm3's multiplicity bound (msm2 fallback), read
+     from K6's launches.
 Each phase drives its path with the launch counts set to 0 just before and
 read just after, prints its counts, and fails unless every kernel of ITS
 path (REQUIRED below) was launched in it.
-Then one JSON line of per-kernel records, and as the LAST line
+Then the total wall, nvidia-smi's name and power limit once more, one
+JSON line of per-kernel records, and as the LAST line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
 Needs no network; imports nothing of JAX or the JAX package.
 """
@@ -47,6 +60,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 PTAU = os.path.join(FIXTURES, "powersOfTau28_hez_final_11.ptau")
@@ -68,6 +82,7 @@ OPS_MADD = (8, 3)     # K3, K6, K8b
 OPS_JADD = (12, 4)    # K4, K5, K8a
 OPS_DOUBLE = (2, 5)   # K7, per doubling
 HEADLINE_N = 1 << 18
+TURBO_SMALL = (12, 16, 3)  # gates, group order, table bits: 3 lookup rows
 MID_N = 1 << 16
 CHAIN_N = 1 << 11
 TAU = 0xDEADBEEF1337  # Setup.generate's known tau: the MSM oracle needs it
@@ -105,6 +120,10 @@ REQUIRED = {
     "chain-2^18": _LARGE_PATH,
     "msm3-oracle": ("K3", "K4", "K5"),
     "msm3-overflow": ("K3", "K4", "K5", "K6"),
+    # Phase 9 reuses phase 7's SRS, so no K8a; its own engine builds msm3
+    # tables (K7); K6 only where a commit overflows msm3's multiplicity
+    # bound.
+    "turbo-lookup-2^18": ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K7"),
 }
 
 
@@ -403,7 +422,8 @@ def check_kernels(torch, np) -> list[dict]:
     headline (n = 2^18) path gives it: Setup.generate's window sum, the
     msm3 commits and four-step NTTs, and the one msm2 fallback commit at
     m = 2^18 (K6's scan, K5's widest chunk-fold level, K7's 8-doubling
-    table step); the elementwise K8a, K8b and K9, which no path calls, at
+    table step), K2 over the chain's and turbo + lookup's stacks; the
+    elementwise K8a, K8b and K9, which no path calls, at
     width 2^20, and K8a and K8b again at a ragged width on views."""
     from plonkathon_tpu_torch.ops import cuda_lib, cuda_mont as CM, msm2, msm3
     from plonkathon_tpu_torch.ops.limbs import fq, fr
@@ -423,15 +443,17 @@ def check_kernels(torch, np) -> list[dict]:
             plain=lambda f=field, a=a, b=b: CM.mont_mul_plain(f, a, b),
             nbytes=3 * 64 * w, muls=_muls(OPS_FIELD, w),
         ))
-    # K2: one four-step stage of the 4n coset NTT over the 15-polynomial stack.
-    w = 15 * 2 * n
-    c0, c1, tw = (_lazy(torch, np, rng, fr, w) for _ in range(3))
-    cases.append(dict(
-        kernel="K2", fn="k2_kernel", name="K2 dif_butterfly", width=w,
-        run=lambda: CM.dif_butterfly(c0, c1, tw),
-        plain=lambda: CM.dif_butterfly_plain(c0, c1, tw),
-        nbytes=5 * 64 * w, muls=_muls(OPS_FIELD, w),
-    ))
+    # K2: one four-step stage of the 4n coset NTT over round 3's stack: 15
+    # rows for the chain, 27 for turbo + lookup (15 + QCUBE + 11 lookup rows).
+    for rows in (15, 27):
+        w = rows * 2 * n
+        c0, c1, tw = (_lazy(torch, np, rng, fr, w) for _ in range(3))
+        cases.append(dict(
+            kernel="K2", fn="k2_kernel", name=f"K2 dif_butterfly ({rows}-row stack)", width=w,
+            run=lambda c0=c0, c1=c1, tw=tw: CM.dif_butterfly(c0, c1, tw),
+            plain=lambda c0=c0, c1=c1, tw=tw: CM.dif_butterfly_plain(c0, c1, tw),
+            nbytes=5 * 64 * w, muls=_muls(OPS_FIELD, w),
+        ))
     # K3: the commit run-scan, S = 32 steps x C = 2^17 lanes, one launch.
     steps, lanes, _, t_ends, _ = msm3.plan_params(16 * n)
     acc3, pts3, mask3 = _inc_case(torch, np, rng, "madd", steps, lanes, [0, 1, 2, 3])
@@ -807,6 +829,111 @@ def msm_oracle_phase(torch, np, cuda_lib, setup, m: int):
           f"launches {json.dumps(launches)}", flush=True)
 
 
+def _flat_ints(proof) -> dict:
+    return {k: (tuple(int(c) for c in v) if isinstance(v, tuple) else int(v))
+            for k, v in proof.flatten().items()}
+
+
+def _lookup_eval_changed(proof):
+    """The proof with its lk_f_eval opening increased by one."""
+    from dataclasses import replace
+
+    evals = dict(proof.msg_4.lookup_evals)
+    evals["f"] = evals["f"] + 1
+    return replace(proof, msg_4=replace(proof.msg_4, lookup_evals=evals))
+
+
+def turbo_small_phase(ptt):
+    """9(a): the smallest turbo + lookup circuit, card against CPU."""
+    from plonkathon_tpu_torch.models.examples import turbo_lookup_program, turbo_lookup_witness
+
+    t0 = time.perf_counter()
+    gates, n, bits = TURBO_SMALL
+    flats = {}
+    for dev in ("cuda", "cpu"):
+        setup = ptt.Setup.from_file(PTAU, device=dev)
+        program = turbo_lookup_program(gates, n, table_bits=bits, device=dev)
+        kinds = [bool(c.coeffs.get("$lookup")) + 2 * bool(c.coeffs.get("$cube"))
+                 for c in program.constraints]
+        if not (0 in kinds and 1 in kinds and 2 in kinds):
+            fail("the small turbo + lookup circuit lacks vanilla, lookup or cube rows")
+        proof = ptt.Prover(setup, program, debug=True, device=dev).prove(
+            dict(turbo_lookup_witness(program)))
+        flats[dev] = _flat_ints(proof)
+        if dev == "cuda":
+            vk = setup.verification_key(program.common_preprocessed_input())
+            for verify in (vk.verify_proof, vk.verify_proof_unoptimized):
+                if not verify(n, proof, []):
+                    fail(f"the small turbo + lookup proof fails {verify.__name__}")
+                if verify(n, _lookup_eval_changed(proof), []):
+                    fail(f"{verify.__name__} accepts a changed lk_f_eval")
+    if flats["cuda"] != flats["cpu"]:
+        diff = sorted(k for k in flats["cuda"] if flats["cuda"][k] != flats["cpu"].get(k))
+        fail(f"turbo + lookup proof: card and CPU differ in {diff}")
+    print(f"[9a] turbo + lookup, {gates} gates at n = {n}, table_bits {bits}, debug checks: "
+          f"the card's proof equals the CPU's field for field ({len(flats['cuda'])} fields); "
+          f"both verifiers accept it and reject it with lk_f_eval + 1 "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+def turbo_large_phase(ptt, torch, cuda_lib, srs, n: int):
+    """9(b): turbo_lookup_program(n - 8, n) on the SRS of `srs` (a Setup),
+    with an engine of its own so that the cold proof builds its window
+    tables: cold, warm and profiled proofs, both verifiers; returns the
+    launches over its path."""
+    from plonkathon_tpu_torch.models.examples import turbo_lookup_program, turbo_lookup_witness
+
+    setup = ptt.Setup(srs.powers_of_x, srs.X2, device=srs.device)
+    t0 = time.perf_counter()
+    program = turbo_lookup_program(n - 8, n)
+    witness = turbo_lookup_witness(program)
+    t_build = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    prover = ptt.Prover(setup, program)
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = prover.prove(dict(witness))
+    cold = time.perf_counter() - t0
+    cold_rounds = {k: round(v * 1e3, 1) for k, v in prover.timings.sections.items()}
+    prover.timings = type(prover.timings)(prover.device)
+    t0 = time.perf_counter()
+    proof = prover.prove(dict(witness))
+    warm = time.perf_counter() - t0
+    rounds = {k: round(v * 1e3, 1) for k, v in prover.timings.sections.items()}
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    vk = setup.verification_key(prover.pk)
+    t_vk = time.perf_counter() - t0
+    launches = launches_since_reset(torch, cuda_lib, "turbo-lookup-2^18")
+    t0 = time.perf_counter()
+    for verify in (vk.verify_proof, vk.verify_proof_unoptimized):
+        if not verify(n, proof, []):
+            fail(f"the n = {n} turbo + lookup proof fails {verify.__name__}")
+    t_verify = time.perf_counter() - t0
+    flat = proof.flatten()
+    if len(flat) != 27 or any(v is None for v in flat.values()):
+        fail(f"the n = {n} turbo + lookup proof has {len(flat)} fields or an identity")
+    host = rounds.get("round_1_lookup_host", 0.0)
+    print(f"[9b] turbo + lookup n = {n} ({n - 8} gates, table_bits 8) on Setup.generate: "
+          f"both verifiers accept; program + witness {t_build:.2f} s, Prover() {t_init:.2f} s, "
+          f"cold prove {cold:.3f} s (rounds ms {json.dumps(cold_rounds)}), warm prove "
+          f"{warm:.3f} s (window tables built in the cold one), warm rounds ms {json.dumps(rounds)}, round 1's host f/h1/h2 build "
+          f"{host:.1f} ms of round 1's {rounds['round_1']:.1f} ms; verification key {t_vk:.2f} s, "
+          f"both verifiers {t_verify:.2f} s; peak device memory {peak / 2**30:.2f} GiB; "
+          f"launches over the two proofs and the key {json.dumps(launches)}", flush=True)
+    breakdown = device_breakdown(torch, lambda: prover.prove(dict(witness)))
+    print(f"[9b] profiled warm prove: {json.dumps(breakdown)}", flush=True)
+    # A commit over msm3's multiplicity bound is recommitted through msm2,
+    # whose run-scan is K6: no K6 launch on this path means no fallback.
+    fallback = "none" if launches["K6"] == 0 else f"{launches['K6']} K6 launches"
+    print(f"[9b] commits that took the msm2 fallback (msm3's multiplicity bound): "
+          f"{fallback}", flush=True)
+    return launches
+
+
 def main():
     try:
         import numpy as np
@@ -875,8 +1002,16 @@ def main():
     # 8. msm3 against the exact oracle, on the headline setup's engine
     msm_oracle_phase(torch, np, cuda_lib, setup, HEADLINE_N)
 
+    # 9. TurboPlonK cube gates + PlonKup lookups: card against CPU, then
+    # n = 2^18 on the headline setup
+    turbo_small_phase(ptt)
+    turbo_launches = turbo_large_phase(ptt, torch, cuda_lib, setup, HEADLINE_N)
+
     for r in records:
         r["launches"] = launches[r["kernel"]]
+        r["launches_turbo_lookup"] = turbo_launches[r["kernel"]]
+    print(f"chip_smoke: total wall {time.perf_counter() - T_START:.1f} s", flush=True)
+    print(smi, flush=True)  # again, where a tail of the output keeps it
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
 

@@ -152,18 +152,22 @@ class Setup:
 
     # -- verification key -------------------------------------------------
     def verification_key(self, pk) -> "_verifier.VerificationKey":
-        """Commit to the preprocessed polynomials (vanilla PLONK layout)."""
-        if pk.QCUBE is not None or pk.QK is not None:
-            raise NotImplementedError(
-                "custom-gate and PlonKup verification keys arrive with the "
-                "prover extensions (ROADMAP Queue 1, item 9)"
-            )
+        """Commit to the preprocessed polynomials: the vanilla eight, then
+        QCUBE (cube gates) and QK, TBL (PlonKup) where the circuit has
+        them, all in one commit_batch (one host fetch)."""
         polys = [pk.QM, pk.QL, pk.QR, pk.QO, pk.QC, pk.S1, pk.S2, pk.S3]
-        coeffs = [p.ifft().values.to(self.device) for p in polys]
-        qm, ql, qr, qo, qc, s1, s2, s3 = self.msm_engine.commit_batch(coeffs)
+        extra = [p for p in (pk.QCUBE, pk.QK, pk.TBL) if p is not None]
+        coeffs = [p.ifft().values.to(self.device) for p in polys + extra]
+        points = self.msm_engine.commit_batch(coeffs)
+        qm, ql, qr, qo, qc, s1, s2, s3 = points[:8]
+        rest = iter(points[8:])
+        qcube = next(rest) if pk.QCUBE is not None else None
+        qk = next(rest) if pk.QK is not None else None
+        tbl = next(rest) if pk.TBL is not None else None
         return _verifier.VerificationKey(
             group_order=pk.group_order,
             Qm=qm, Ql=ql, Qr=qr, Qo=qo, Qc=qc, S1=s1, S2=s2, S3=s3,
             X_2=self.X2,
             w=Fr.root_of_unity(pk.group_order),
+            Qcube=qcube, Qk=qk, Tbl=tbl, t_last=pk.t_last,
         )

@@ -120,11 +120,6 @@ class Polynomial:
         return Polynomial(fr.neg(self.values), self.basis)
 
     # -- structure --------------------------------------------------------
-    def shift(self, k: int) -> "Polynomial":
-        """Cyclic left rotation of Lagrange values: p(x) -> p(omega^k x)."""
-        assert self.basis == Basis.LAGRANGE
-        return Polynomial(torch.roll(self.values, -k, dims=1), self.basis)
-
     # -- basis changes ----------------------------------------------------
     def fft(self, inv: bool = False) -> "Polynomial":
         if inv:

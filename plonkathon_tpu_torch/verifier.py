@@ -3,9 +3,9 @@
 Host arithmetic throughout (a cold path): challenge replay through the
 transcript, the linearization algebra, ~20-term MSMs with the host
 Pippenger in ec.py, and pairings over the in-repo BN254 implementation.
-Vanilla PLONK layout: the custom-gate and PlonKup extensions of the JAX
-package's verifier arrive with the prover extensions (ROADMAP Queue 1,
-items 1-2).
+The verification key optionally carries the cube-gate selector (Qcube) and
+the PlonKup commitments (Qk, Tbl) with the table's padding value t_last;
+both verifiers then add their terms, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from .ec import B1, G1, G2, ec_lincomb, ec_mul, is_on_curve, pt_add
 from .pairing import pairing
 from .transcript import Transcript
 
-# Proof wire format: 9 G1 points + 6 scalars.
+# Proof wire format: 9 G1 points + 6 scalars, plus the PlonKup extension's
+# 4 points + 8 scalars when lookups are on.
 _PROOF_POINTS = (
     "a_1", "b_1", "c_1", "z_1", "t_lo_1", "t_mid_1", "t_hi_1",
     "W_z_1", "W_zw_1",
@@ -25,6 +26,7 @@ _PROOF_POINTS = (
 _PROOF_SCALARS = (
     "a_eval", "b_eval", "c_eval", "s1_eval", "s2_eval", "z_shifted_eval",
 )
+_LOOKUP_POINTS = ("f_1", "h1_1", "h2_1", "z2_1")
 
 
 def _valid_g1(pt) -> bool:
@@ -102,6 +104,14 @@ class VerificationKey:
     S3: tuple  # [S_sigma3(x)]_1
     X_2: tuple  # [x]_2
     w: Fr      # n-th root of unity
+    # Cube-gate selector commitment; None for vanilla circuits (the
+    # 8-commitment snarkjs layout).
+    Qcube: tuple | None = None
+    # PlonKup: lookup-selector and table commitments and the table's
+    # padding value; None without lookups.
+    Qk: tuple | None = None
+    Tbl: tuple | None = None
+    t_last: Fr | None = None
 
     # -- challenge replay -------------------------------------------------
     def compute_challenges(self, proof):
@@ -111,14 +121,40 @@ class VerificationKey:
         zeta = transcript.round_3(proof.msg_3)
         v = transcript.round_4(proof.msg_4)
         u = transcript.round_5(proof.msg_5)
+        # PlonKup challenges (drawn inside round_1 when the proof has f_1).
+        self._delta = getattr(transcript, "delta", None)
+        self._epsilon = getattr(transcript, "epsilon", None)
         return beta, gamma, alpha, zeta, v, u
+
+    def _lookup_pieces(self, group_order: int, proof: dict, alpha, zeta):
+        """(c_z2, c_h1, c_qk, c_const, e) for PlonKup proofs, None else;
+        `e` holds the extra openings keyed as plonkup.EVAL_ORDER."""
+        if self.Qk is None:
+            return None
+        from .plonkup import EVAL_ORDER, linearization_scalars
+
+        e = {k: proof[f"lk_{k}_eval"] for k in EVAL_ORDER}
+        e["a"] = proof["a_eval"]
+        return (
+            *linearization_scalars(
+                group_order, alpha, zeta, self._delta, self._epsilon, e,
+                self.t_last, self.w,
+            ),
+            e,
+        )
 
     def _validate_proof(self, proof: dict) -> bool:
         """Structural well-formedness, checked BEFORE any pairing."""
-        for key in _PROOF_POINTS:
+        points = _PROOF_POINTS + (_LOOKUP_POINTS if self.Qk is not None else ())
+        for key in points:
             if key not in proof or not _valid_g1(proof[key]):
                 return False
-        for key in _PROOF_SCALARS:
+        scalar_keys = list(_PROOF_SCALARS)
+        if self.Qk is not None:
+            from .plonkup import EVAL_ORDER
+
+            scalar_keys += [f"lk_{k}_eval" for k in EVAL_ORDER]
+        for key in scalar_keys:
             if key not in proof or not _valid_fr(proof[key]):
                 return False
         return True
@@ -129,6 +165,10 @@ class VerificationKey:
         pi_ev = _public_eval(public, group_order, zeta)
         return zh_ev, l0_ev, pi_ev
 
+    def _cube_term(self, a_ev) -> list:
+        """[(Qcube, a_eval^3)] for cube-gate keys, [] else."""
+        return [(self.Qcube, a_ev**3)] if self.Qcube is not None else []
+
     # -- optimized: one combined pairing check ----------------------------
     def verify_proof(self, group_order: int, pf, public=()) -> bool:
         proof = pf.flatten()
@@ -136,6 +176,7 @@ class VerificationKey:
             return False  # malformed proof (off-curve point / bad scalar)
         beta, gamma, alpha, zeta, v, u = self.compute_challenges(pf)
         zh_ev, l0_ev, pi_ev = self._common_evals(group_order, zeta, public)
+        lk = self._lookup_pieces(group_order, proof, alpha, zeta)
 
         a_ev, b_ev, c_ev = proof["a_eval"], proof["b_eval"], proof["c_eval"]
         s1_ev, s2_ev = proof["s1_eval"], proof["s2_eval"]
@@ -151,10 +192,37 @@ class VerificationKey:
             * (c_ev + gamma)
             * zw_ev
         )
+        lk_terms, lk_open_z, lk_open_zw = [], [], []
+        ev_z = ev_zw = Fr(0)
+        if lk is not None:
+            c_z2, c_h1, c_qk, c_const, e = lk
+            r0 = r0 + c_const
+            lk_terms = [
+                (proof["z2_1"], c_z2),
+                (proof["h1_1"], c_h1),
+                (self.Qk, c_qk),
+            ]
+            # W_z batches (f, t, h1, h2) at v^6..v^9; W_zw is the RLC of
+            # (z, t, h1, h2, z2) at v^0..v^4 (weight u overall).
+            lk_open_z = [
+                (proof["f_1"], v**6), (self.Tbl, v**7),
+                (proof["h1_1"], v**8), (proof["h2_1"], v**9),
+            ]
+            ev_z = v**6 * e["f"] + v**7 * e["t"] + v**8 * e["h1"] + v**9 * e["h2"]
+            lk_open_zw = [
+                (self.Tbl, u * v), (proof["h1_1"], u * v**2),
+                (proof["h2_1"], u * v**3), (proof["z2_1"], u * v**4),
+            ]
+            ev_zw = (
+                v * e["t_w"] + v**2 * e["h1_w"] + v**3 * e["h2_w"]
+                + v**4 * e["z2_w"]
+            )
 
         # D = [R]_1 - r0*G + u*[z]_1
         d_pt = ec_lincomb(
-            [
+            self._cube_term(a_ev)
+            + lk_terms
+            + [
                 (self.Qm, a_ev * b_ev),
                 (self.Ql, a_ev),
                 (self.Qr, b_ev),
@@ -192,6 +260,8 @@ class VerificationKey:
                 (self.S1, v**4),
                 (self.S2, v**5),
             ]
+            + lk_open_z
+            + lk_open_zw
         )
         e_pt = ec_mul(
             G1,
@@ -201,7 +271,9 @@ class VerificationKey:
             + v**3 * c_ev
             + v**4 * s1_ev
             + v**5 * s2_ev
-            + u * zw_ev,
+            + u * zw_ev
+            + ev_z
+            + u * ev_zw,
         )
 
         # Combined KZG opening check at zeta and zeta*omega with one random
@@ -230,6 +302,22 @@ class VerificationKey:
             return False  # malformed proof (off-curve point / bad scalar)
         beta, gamma, alpha, zeta, v, _u = self.compute_challenges(pf)
         zh_ev, l0_ev, pi_ev = self._common_evals(group_order, zeta, public)
+        lk = self._lookup_pieces(group_order, proof, alpha, zeta)
+        lk_terms, lk_open_z = [], []
+        if lk is not None:
+            c_z2, c_h1, c_qk, c_const, e = lk
+            lk_terms = [
+                (proof["z2_1"], c_z2),
+                (proof["h1_1"], c_h1),
+                (self.Qk, c_qk),
+                (G1, c_const),
+            ]
+            lk_open_z = [
+                (proof["f_1"], v**6), (G1, -(v**6) * e["f"]),
+                (self.Tbl, v**7), (G1, -(v**7) * e["t"]),
+                (proof["h1_1"], v**8), (G1, -(v**8) * e["h1"]),
+                (proof["h2_1"], v**9), (G1, -(v**9) * e["h2"]),
+            ]
 
         a_ev, b_ev, c_ev = proof["a_eval"], proof["b_eval"], proof["c_eval"]
         s1_ev, s2_ev = proof["s1_eval"], proof["s2_eval"]
@@ -237,7 +325,9 @@ class VerificationKey:
 
         # Reconstruct [R]_1 exactly as the prover linearized it.
         r_pt = ec_lincomb(
-            [
+            self._cube_term(a_ev)
+            + lk_terms
+            + [
                 (self.Qm, a_ev * b_ev),
                 (self.Ql, a_ev),
                 (self.Qr, b_ev),
@@ -275,7 +365,8 @@ class VerificationKey:
             ]
         )
 
-        # Check 1: R(zeta) = 0 and the openings of A, B, C, S1, S2 at zeta.
+        # Check 1: R(zeta) = 0 and the openings of A, B, C, S1, S2 (and, with
+        # lookups, f, t, h1, h2) at zeta.
         agg = ec_lincomb(
             [
                 (r_pt, 1),
@@ -290,14 +381,24 @@ class VerificationKey:
                 (self.S2, v**5),
                 (G1, -(v**5) * s2_ev),
             ]
+            + lk_open_z
         )
         if pairing(G2, agg) != pairing(
             pt_add(self.X_2, ec_mul(G2, -zeta)), proof["W_z_1"]
         ):
             return False  # opening check at zeta failed
 
-        # Check 2: the opening of Z at zeta*omega.
+        # Check 2: the opening of Z (and, with lookups, the v-RLC with t,
+        # h1, h2, Z2) at zeta*omega.
         zw_terms = [(proof["z_1"], Fr(1)), (G1, -zw_ev)]
+        if lk is not None:
+            e = lk[4]
+            zw_terms += [
+                (self.Tbl, v), (G1, -v * e["t_w"]),
+                (proof["h1_1"], v**2), (G1, -(v**2) * e["h1_w"]),
+                (proof["h2_1"], v**3), (G1, -(v**3) * e["h2_w"]),
+                (proof["z2_1"], v**4), (G1, -(v**4) * e["z2_w"]),
+            ]
         if pairing(G2, ec_lincomb(zw_terms)) != pairing(
             pt_add(self.X_2, ec_mul(G2, -zeta * self.w)), proof["W_zw_1"]
         ):

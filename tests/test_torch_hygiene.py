@@ -1,6 +1,7 @@
 """Hygiene of the port package (CPU).
 
-* It imports no JAX and nothing of plonkathon_tpu, in any submodule.
+* It imports no JAX and nothing of plonkathon_tpu, in any submodule
+  (models/ included).
 * Its entry points run on the card unless the caller asks for the CPU:
   without a card, asking for CUDA (the default) raises.
 * chip_smoke.py's per-phase required kernel sets together name every
@@ -27,7 +28,9 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] == "jax" or n.split(".")[0].startswith("jax")
              or n == "plonkathon_tpu" or n.startswith("plonkathon_tpu."))
-print("IMPORTED", len([n for n in sys.modules if n.startswith("plonkathon_tpu_torch")]))
+ours = [n for n in sys.modules if n.startswith("plonkathon_tpu_torch")]
+print("IMPORTED", len(ours))
+print("MODELS", sorted(n for n in ours if ".models" in n))
 print("BAD", bad)
 """
 
@@ -39,7 +42,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout
     assert "BAD []" in out, out
-    assert int(out.split("IMPORTED ")[1].split()[0]) >= 22, out
+    assert int(out.split("IMPORTED ")[1].split()[0]) >= 25, out
+    assert ("MODELS ['plonkathon_tpu_torch.models', 'plonkathon_tpu_torch.models.examples', "
+            "'plonkathon_tpu_torch.models.poseidon']") in out, out
     for module in ("ops.msm3", "ops.ntt_fourstep"):
         assert os.path.exists(
             os.path.join(ROOT, "plonkathon_tpu_torch", *module.split(".")) + ".py")

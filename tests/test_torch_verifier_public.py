@@ -17,15 +17,14 @@ import os
 import pytest
 import torch
 
-from plonkathon_tpu import verifier as jax_verifier
-from plonkathon_tpu.fields import Fq as JaxFq
-from plonkathon_tpu.fields import Fq2 as JaxFq2
 from plonkathon_tpu.fields import Fr as JaxFr
 from plonkathon_tpu.utils.serialization import load_proof_pickle as jax_load_proof
 from plonkathon_tpu_torch import Program, Setup, load_proof_pickle
 from plonkathon_tpu_torch.ec import ec_lincomb
 from plonkathon_tpu_torch.fields import Fr
 from plonkathon_tpu_torch.verifier import VerificationKey
+
+from _torch_jax_bridge import G1_KEYS, jax_vk
 
 torch.set_num_threads(1)  # small tensors: threads only contend with xdist
 
@@ -36,11 +35,6 @@ N = 8
 LENGTHS = [N - 1, N, N + 1, N + 2, 2 * N, 2 * N + 1]
 ZETA = 0x2B3F6E1D9A7C5048112233445566778899AABBCCDDEEFF0011223344556677
 VERIFIERS = ("verify_proof", "verify_proof_unoptimized")
-_G1_KEYS = ("Qm", "Ql", "Qr", "Qo", "Qc", "S1", "S2", "S3")
-
-
-def _jax_g1(pt):
-    return None if pt is None else (JaxFq(int(pt[0])), JaxFq(int(pt[1])))
 
 
 @pytest.fixture(scope="module")
@@ -53,18 +47,12 @@ def keys():
         N,
         *(
             ec_lincomb(list(zip(srs, getattr(pk, k.upper()).ifft().to_ints())))
-            for k in _G1_KEYS
+            for k in G1_KEYS
         ),
         setup.X2,
         Fr.root_of_unity(N),
     )
-    jax_vk = jax_verifier.VerificationKey(
-        N,
-        *(_jax_g1(getattr(vk, k)) for k in _G1_KEYS),
-        tuple(JaxFq2(list(c.coeffs)) for c in vk.X_2),
-        JaxFr(int(vk.w)),
-    )
-    return vk, jax_vk
+    return vk, jax_vk(vk)
 
 
 @pytest.fixture(scope="module")
@@ -81,13 +69,13 @@ def _publics(length):
 
 @pytest.mark.parametrize("length", LENGTHS)
 def test_public_inputs_match_reference(keys, proofs, length):
-    vk, jax_vk = keys
+    vk, ref_vk = keys
     proof, jax_proof = proofs
     results = []
     for public in _publics(length):
         pi = vk._common_evals(N, Fr(ZETA), public)[2]
-        assert int(pi) == int(jax_vk._common_evals(N, JaxFr(ZETA), public)[2])
-        expected = [getattr(jax_vk, f)(N, jax_proof, public) for f in VERIFIERS]
+        assert int(pi) == int(ref_vk._common_evals(N, JaxFr(ZETA), public)[2])
+        expected = [getattr(ref_vk, f)(N, jax_proof, public) for f in VERIFIERS]
         got = [getattr(vk, f)(N, proof, public) for f in VERIFIERS]
         assert got == expected, (public, got, expected)
         results.append(got)
