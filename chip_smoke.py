@@ -12,8 +12,9 @@ Phases, each printing its lines:
      lanes -- among them one whole msm3 suffix fold (one K5 launch) against
      the same fold on CPU copies, all J dense-bucket rounds (one K4 launch)
      and the 32-window sum of 2^18 points (one K8a launch), K2's stage
-     over both of round 3's stacks (15 rows for the chain, 27 for turbo +
-     lookup), and the
+     over round 3's stacks (15 rows for the chain, 27 for turbo + lookup,
+     4 x 15 for phase 12's batch), K7's table steps and K8a's window sum
+     again over 2^18 + 3 points (phase 10's SRS), and the
      elementwise K8a add and K8b once more, equality only, at a ragged width
      on a column slice and a [16, 1] broadcast: equal raw
      limbs, kernel and plain times from CUDA events, the bound (bytes over
@@ -42,7 +43,32 @@ Phases, each printing its lines:
      with a fresh commit engine (the cold proof builds its window tables),
      a cold and a warm proof and a profiled one, both verifiers accepting;
      the commits over msm3's multiplicity bound (msm2 fallback), read
-     from K6's launches.
+     from K6's launches;
+ 10. ZK blinding (Program(blinding_rows=4)): (a) the three-gate circuit at
+     n = 8 and the 12-gate turbo + lookup circuit at n = 16 on the
+     ceremony SRS, proved with debug checks on the card and on the CPU
+     under one seeded blinder stream (secrets.randbelow patched), the two
+     proofs equal field for field, both verifiers accepting, and two
+     unpatched card proofs differing in a_1, b_1, c_1, z_1; (b)
+     Setup.generate(2^18 + 3) (its powers held against tau^i * G, the
+     last three beyond n among them) and the blinded mul-chain at n = 2^18
+     (n - 4 rows): cold, warm and profiled proofs, both verifiers, the
+     msm3 tables' width (n + 3, built once) and K7's launches; (c) the
+     rows of turbo_lookup_program(2^18 - 8, 2^18) with blinding rows on
+     that SRS, an engine of its own: cold, warm, profiled, both
+     verifiers, the msm2 fallback read from K6's launches;
+ 11. the standalone plookup (lookup.py): (a) the JAX tests' TABLE at
+     n = 8 on the ceremony SRS, card against CPU field for field,
+     verify_lookup accepting it and rejecting evals['f'] + 1; (b) the
+     16-bit range table at n = 2^16 with seeded witness values on phase
+     7's SRS: prove and verify walls, the host Horner and synthetic
+     division (profiler ranges), the q commit's route (m = 3n);
+ 12. BatchProver (parallel/batch.py): (a) the fixture circuit, B = 2:
+     proof 0 is proof.pickle, proof 1 the single proof of its witness;
+     (b) B = 4 mul-chain witnesses at n = 2^18 on phase 7's setup, each
+     proof equal to its single proof, the batch's K2 launches no more
+     than one single warm proof's, its wall against 4 single proofs and
+     its peak memory.
 Each phase drives its path with the launch counts set to 0 just before and
 read just after, prints its counts, and fails unless every kernel of ITS
 path (REQUIRED below) was launched in it.
@@ -54,6 +80,7 @@ Needs no network; imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -85,6 +112,10 @@ HEADLINE_N = 1 << 18
 TURBO_SMALL = (12, 16, 3)  # gates, group order, table bits: 3 lookup rows
 MID_N = 1 << 16
 CHAIN_N = 1 << 11
+BLIND_ROWS = 4     # phase 10's blinding rows
+BLIND_SEED = 20261017
+PLOOKUP_N = 1 << 16
+BATCH = 4          # phase 12's proofs per batch
 TAU = 0xDEADBEEF1337  # Setup.generate's known tau: the MSM oracle needs it
 
 SOURCES = {
@@ -124,6 +155,21 @@ REQUIRED = {
     # tables (K7); K6 only where a commit overflows msm3's multiplicity
     # bound.
     "turbo-lookup-2^18": ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K7"),
+    # Phase 10: blinded proofs.  Its small circuits take the small path;
+    # the chain generates its own n + 3 SRS (K8a), builds its tables (K7)
+    # and, in the key, takes the QL fallback (K6); the blinded turbo +
+    # lookup circuit has an engine of its own on that SRS.
+    "zk-small": _SMALL_PATH,
+    "zk-chain-2^18": _LARGE_PATH,
+    "zk-turbo-lookup-2^18": ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K7"),
+    # Phase 11: plookup at n = 8 (small path) and at n = 2^16 on phase 7's
+    # engine, whose tables already cover 3n (no K7).
+    "plookup-8": _SMALL_PATH,
+    "plookup-2^16": ("K1 fr", "K2", "K3", "K4", "K5"),
+    # Phase 12: BatchProver on the fixture (small path) and at n = 2^18 on
+    # phase 7's engine (tables resident).
+    "batch-8": _SMALL_PATH,
+    "batch-2^18": ("K1 fr", "K2", "K3", "K4", "K5"),
 }
 
 
@@ -138,6 +184,20 @@ def chain_lines(n: int) -> list[str]:
     lines += [f"c{i} <== c{i-1} * a" for i in range(2, n - 3)]
     lines.append(f"out <== c{n-4} * a")
     return lines
+
+
+def chain_witness(n: int, a: int) -> dict:
+    """chain_lines(n)'s witness for input a, c_i = a^(i+1) and out =
+    a^(n-3), by repeated products (what fill_variable_assignments derives
+    row by row, without its per-row parsing)."""
+    from plonkathon_tpu_torch.fields import FR_MOD
+
+    witness, acc = {"a": a}, a
+    for i in range(1, n - 3):
+        acc = acc * a % FR_MOD
+        witness[f"c{i}"] = acc
+    witness["out"] = acc * a % FR_MOD
+    return witness
 
 
 # ---------------------------------------------------------------------------
@@ -422,9 +482,10 @@ def check_kernels(torch, np) -> list[dict]:
     headline (n = 2^18) path gives it: Setup.generate's window sum, the
     msm3 commits and four-step NTTs, and the one msm2 fallback commit at
     m = 2^18 (K6's scan, K5's widest chunk-fold level, K7's 8-doubling
-    table step), K2 over the chain's and turbo + lookup's stacks; the
-    elementwise K8a, K8b and K9, which no path calls, at
-    width 2^20, and K8a and K8b again at a ragged width on views."""
+    table step), K2 over the chain's, turbo + lookup's and the B = 4
+    batch's stacks, K7 and K8a's window sum again at n + 3 (phase 10's
+    SRS); the elementwise K8a, K8b and K9, which no path calls, at width
+    2^20, and K8a and K8b again at a ragged width on views."""
     from plonkathon_tpu_torch.ops import cuda_lib, cuda_mont as CM, msm2, msm3
     from plonkathon_tpu_torch.ops.limbs import fq, fr
 
@@ -444,12 +505,14 @@ def check_kernels(torch, np) -> list[dict]:
             nbytes=3 * 64 * w, muls=_muls(OPS_FIELD, w),
         ))
     # K2: one four-step stage of the 4n coset NTT over round 3's stack: 15
-    # rows for the chain, 27 for turbo + lookup (15 + QCUBE + 11 lookup rows).
-    for rows in (15, 27):
+    # rows for the chain, 27 for turbo + lookup (15 + QCUBE + 11 lookup rows),
+    # and B x 15 for phase 12's batch of B chain proofs.
+    for rows, label in ((15, "15-row stack"), (27, "27-row stack"),
+                        (BATCH * 15, f"batch stack, B = {BATCH} x 15 rows")):
         w = rows * 2 * n
         c0, c1, tw = (_lazy(torch, np, rng, fr, w) for _ in range(3))
         cases.append(dict(
-            kernel="K2", fn="k2_kernel", name=f"K2 dif_butterfly ({rows}-row stack)", width=w,
+            kernel="K2", fn="k2_kernel", name=f"K2 dif_butterfly ({label})", width=w,
             run=lambda c0=c0, c1=c1, tw=tw: CM.dif_butterfly(c0, c1, tw),
             plain=lambda c0=c0, c1=c1, tw=tw: CM.dif_butterfly_plain(c0, c1, tw),
             nbytes=5 * 64 * w, muls=_muls(OPS_FIELD, w),
@@ -529,28 +592,34 @@ def check_kernels(torch, np) -> list[dict]:
         plain_once=True,
     ))
     # K7: one window step of a table build over n points: 16 doublings for
-    # the msm3 tables, 8 for the msm2 tables the fallback builds.
-    w = n
-    p7a, _ = _points(torch, np, rng, w)
-    pd = tuple(p7a[16 * i : 16 * (i + 1)] for i in range(3))
-    for label, nd in (("msm3 tables", msm3.WBITS), ("msm2 tables", msm2.WINDOW_BITS)):
+    # the msm3 tables, 8 for the msm2 tables the fallback builds; and over
+    # n + 3 points, the tables of phase 10's blinded proofs on an SRS of
+    # n + 3 powers (a grid whose tail block is not full).
+    for w, suffix in ((n, ""), (n + 3, ", width n + 3")):
+        p7a, _ = _points(torch, np, rng, w)
+        pd = tuple(p7a[16 * i : 16 * (i + 1)] for i in range(3))
+        for label, nd in (("msm3 tables", msm3.WBITS), ("msm2 tables", msm2.WINDOW_BITS)):
+            cases.append(dict(
+                kernel="K7", fn="k7_kernel", width=w,
+                name=f"K7 jac_double_n ({label}, {nd} doublings{suffix})",
+                run=lambda pd=pd, nd=nd: CM.jac_double_n(pd, nd),
+                plain=lambda pd=pd, nd=nd: CM.jac_double_n_plain(pd, nd),
+                nbytes=2 * 192 * w, muls=_muls(OPS_DOUBLE, nd * w),
+            ))
+    # K8a: Setup.generate's window sum, 32 windows of n points in one
+    # launch, for phase 7's 2^18 powers and phase 10's 2^18 + 3: 31 n adds,
+    # of which the bound counts those with no identity operand.  Its plain
+    # version halves level by level on the card.
+    for w, label in ((n, "Setup.generate"), (n + 3, "Setup.generate, n + 3 points")):
+        win = _window_points(torch, np, rng, w)
         cases.append(dict(
-            kernel="K7", fn="k7_kernel", name=f"K7 jac_double_n ({label}, {nd} doublings)", width=w,
-            run=lambda nd=nd: CM.jac_double_n(pd, nd),
-            plain=lambda nd=nd: CM.jac_double_n_plain(pd, nd),
-            nbytes=2 * 192 * w, muls=_muls(OPS_DOUBLE, nd * w),
+            kernel="K8a", fn="k8a_window_kernel", name=f"K8a window_sum ({label})",
+            width=32 * w,
+            run=lambda win=win: CM.jac_window_sum(win),
+            plain=lambda win=win: CM.jac_window_sum_plain(win),
+            nbytes=(3 * 64 * 32 + 192) * w, muls=_muls(OPS_JADD, _window_adds(torch, win)),
+            profiled=True,
         ))
-    # K8a: Setup.generate(2^18)'s window sum, 32 windows of n points in one
-    # launch: 31 n adds, of which the bound counts those with no identity
-    # operand.  Its plain version halves level by level on the card.
-    win = _window_points(torch, np, rng, n)
-    cases.append(dict(
-        kernel="K8a", fn="k8a_window_kernel", name="K8a window_sum (Setup.generate)",
-        width=32 * n,
-        run=lambda: CM.jac_window_sum(win), plain=lambda: CM.jac_window_sum_plain(win),
-        nbytes=(3 * 64 * 32 + 192) * n, muls=_muls(OPS_JADD, _window_adds(torch, win)),
-        profiled=True,
-    ))
     # The elementwise K8a, K8b, K9: no path calls them; one representative width.
     w = 1 << 20
     qa, qb = _points(torch, np, rng, w)
@@ -743,7 +812,8 @@ def launches_since_reset(torch, cuda_lib, phase: str) -> dict:
 
 def synthetic_phase(ptt, torch, cuda_lib, n: int, phase: str, tag: str, profiled: bool):
     """Setup.generate(n) -> mul-chain -> prove -> verify, then a warm proof
-    with its per-round times; returns (setup, launches over the path)."""
+    with its per-round times; returns (setup, launches over the path, the
+    prover)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
@@ -768,7 +838,7 @@ def synthetic_phase(ptt, torch, cuda_lib, n: int, phase: str, tag: str, profiled
     if profiled:
         breakdown = device_breakdown(torch, lambda: prover.prove(dict(witness)))
         print(f"{tag} profiled warm prove: {json.dumps(breakdown)}", flush=True)
-    return setup, launches
+    return setup, launches, prover
 
 
 def msm_oracle_phase(torch, np, cuda_lib, setup, m: int):
@@ -934,6 +1004,385 @@ def turbo_large_phase(ptt, torch, cuda_lib, srs, n: int):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: ZK blinding, the standalone plookup, BatchProver.
+# ---------------------------------------------------------------------------
+
+def turbo_lookup_lines(n_gates: int) -> list[str]:
+    """The rows of models/examples.py's turbo_lookup_program (a quarter
+    lookup rows into the table, the rest cube rows and every third a
+    mul-add row), for circuits built here with blinding rows, which that
+    function does not take."""
+    nlk = n_gates // 4
+    lines = [f"t{j} lookup" for j in range(nlk)]
+    for i in range(n_gates - nlk):
+        if i % 3 == 2:
+            lines.append(f"y{i+1} <== y{i} * t{i % nlk} + y{i}")
+        else:
+            lines.append(f"y{i+1} <== y{i} * y{i} * y{i}")
+    return lines
+
+
+def blinded_turbo_program(ptt, n_gates: int, n: int, bits: int, device="cuda"):
+    return ptt.Program(turbo_lookup_lines(n_gates), n, custom_gates=True,
+                       lookup_table=list(range(1 << bits)), blinding_rows=BLIND_ROWS,
+                       device=device)
+
+
+@contextlib.contextmanager
+def seeded_blinders(seed: int):
+    """secrets.randbelow, through which the prover draws every blinder,
+    replaced by one seeded stream; restored on exit."""
+    import random
+    import secrets
+
+    real, stream = secrets.randbelow, random.Random(seed)
+    secrets.randbelow = lambda bound: stream.randrange(bound)
+    try:
+        yield
+    finally:
+        secrets.randbelow = real
+
+
+def zk_small_phase(ptt, torch, cuda_lib):
+    """10(a): blinded proofs at n = 8 and 16 on the ceremony SRS under one
+    seeded blinder stream, card against CPU; two unpatched card proofs of
+    one witness differ."""
+    from plonkathon_tpu_torch.models.examples import turbo_lookup_witness
+
+    gates, n16, bits = TURBO_SMALL
+    cases = {
+        "three-gate n = 8": (
+            lambda dev: ptt.Program(["e public", "c <== a * b", "e <== c * d"], 8,
+                                    blinding_rows=BLIND_ROWS, device=dev),
+            lambda program: {"a": 3, "b": 4, "c": 12, "d": 5, "e": 60}, [60]),
+        f"turbo + lookup, {gates} gates at n = {n16}": (
+            lambda dev: blinded_turbo_program(ptt, gates, n16, bits, dev),
+            turbo_lookup_witness, []),
+    }
+    for name, (make, witness_of, public) in cases.items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        flats = {}
+        for dev in ("cuda", "cpu"):
+            setup = ptt.Setup.from_file(PTAU, device=dev)
+            program = make(dev)
+            n = program.group_order
+            witness = witness_of(program)
+            prover = ptt.Prover(setup, program, debug=True, device=dev)
+            cuda_lib.reset_launches()
+            with seeded_blinders(BLIND_SEED):
+                proof = prover.prove(dict(witness))
+            flats[dev] = _flat_ints(proof)
+            if dev == "cpu":
+                continue
+            launches = launches_since_reset(torch, cuda_lib, "zk-small")
+            vk = setup.verification_key(program.common_preprocessed_input())
+            for verify in (vk.verify_proof, vk.verify_proof_unoptimized):
+                if not verify(n, proof, public):
+                    fail(f"blinded {name}: the card's proof fails {verify.__name__}")
+            again = [_flat_ints(prover.prove(dict(witness))) for _ in range(2)]
+            same = [k for k in ("a_1", "b_1", "c_1", "z_1") if again[0][k] == again[1][k]]
+            if same:
+                fail(f"blinded {name}: two unpatched proofs agree in {same}")
+        if flats["cuda"] != flats["cpu"]:
+            diff = sorted(k for k in flats["cuda"] if flats["cuda"][k] != flats["cpu"].get(k))
+            fail(f"blinded {name}: card and CPU differ under one blinder stream in {diff}")
+        print(f"[10a] blinded {name}, blinding_rows {BLIND_ROWS}, debug checks: under one "
+              f"seeded blinder stream the card's proof equals the CPU's field for field "
+              f"({len(flats['cuda'])} fields); both verifiers accept it; two unpatched card "
+              f"proofs differ in a_1, b_1, c_1, z_1; card launches "
+              f"{json.dumps(launches)}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+def zk_chain_phase(ptt, torch, cuda_lib, n: int):
+    """10(b): Setup.generate(n + 3) (the blinded commits are n + 3 wide),
+    its SRS against the host, and the mul-chain with blinding rows at
+    n: cold, warm and profiled proofs, both verifiers; returns (setup,
+    launches over the path)."""
+    from plonkathon_tpu_torch.ec import G1, pt_mul
+    from plonkathon_tpu_torch.fields import FR_MOD
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    setup = ptt.Setup.generate(n + 3, tau=TAU)
+    t_setup = time.perf_counter() - t0
+    for i in (0, 1, 2, n - 1, n, n + 1, n + 2):
+        if setup.powers_of_x[i] != pt_mul(G1, pow(TAU, i, FR_MOD)):
+            fail(f"Setup.generate({n} + 3): power {i} differs from tau^{i} * G")
+    # chain_lines(n - 2) has n - 4 rows: all the rows the 4 blinding rows leave.
+    program = ptt.Program(chain_lines(n - 2), n, blinding_rows=BLIND_ROWS)
+    witness = program.fill_variable_assignments({"a": 3})
+    prover = ptt.Prover(setup, program)
+    t0 = time.perf_counter()
+    proof = prover.prove(dict(witness))
+    cold = time.perf_counter() - t0
+    k7_cold = cuda_lib.LAUNCHES["K7"]
+    prover.timings = type(prover.timings)(prover.device)
+    t0 = time.perf_counter()
+    proof = prover.prove(dict(witness))
+    warm = time.perf_counter() - t0
+    rounds = {k: round(v * 1e3, 1) for k, v in prover.timings.sections.items()}
+    peak_proofs = torch.cuda.max_memory_allocated()
+    vk = setup.verification_key(program.common_preprocessed_input())
+    peak = torch.cuda.max_memory_allocated()
+    launches = launches_since_reset(torch, cuda_lib, "zk-chain-2^18")
+    if launches["K8a"] != 1:
+        fail(f"Setup.generate({n} + 3)'s window sum took {launches['K8a']} K8a launches, not 1")
+    t0 = time.perf_counter()
+    for verify in (vk.verify_proof, vk.verify_proof_unoptimized):
+        if not verify(n, proof, [witness["out"]]):
+            fail(f"the blinded n = {n} mul-chain proof fails {verify.__name__}")
+    t_verify = time.perf_counter() - t0
+    eng = setup.msm_engine
+    # The proof's commits (m = n, n + 2, n + 3) take msm3 from m = 8192 up.
+    width = eng._tab16_n if n >= eng._MSM3_MIN else eng._tab_n
+    if width != n + 3:
+        fail(f"the window tables are {width} wide, not n + 3 = {n + 3}")
+    print(f"[10b] blinded mul-chain n = {n} ({n - 4} rows + {BLIND_ROWS} blinding rows) on "
+          f"Setup.generate({n} + 3), its powers 0-2 and n - 1 ... n + 2 equal to tau^i * G: "
+          f"both verifiers accept ({t_verify:.2f} s); setup {t_setup:.2f} s, cold prove "
+          f"{cold:.3f} s, warm prove {warm:.3f} s, warm rounds ms {json.dumps(rounds)}; msm3 "
+          f"tables {width} wide, built once (K7 {k7_cold} launches in the cold proof, "
+          f"15 per build); peak device memory {peak_proofs / 2**30:.2f} GiB over setup and "
+          f"proofs, {peak / 2**30:.2f} GiB with the key (its QL takes the msm2 fallback); "
+          f"launches {json.dumps(launches)}", flush=True)
+    breakdown = device_breakdown(torch, lambda: prover.prove(dict(witness)))
+    print(f"[10b] profiled warm prove: {json.dumps(breakdown)}", flush=True)
+    return setup, launches
+
+
+def zk_turbo_phase(ptt, torch, cuda_lib, srs, n: int, bits: int = 8):
+    """10(c): turbo_lookup_program(n - 8, n)'s rows with blinding rows, on
+    the SRS of `srs` with an engine of its own (the cold proof builds its
+    tables): cold, warm and profiled proofs, both verifiers; returns the
+    launches over its path."""
+    from plonkathon_tpu_torch.models.examples import turbo_lookup_witness
+
+    setup = ptt.Setup(srs.powers_of_x, srs.X2, device=srs.device)
+    t0 = time.perf_counter()
+    program = blinded_turbo_program(ptt, n - 8, n, bits)
+    witness = turbo_lookup_witness(program)
+    t_build = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    prover = ptt.Prover(setup, program)
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = prover.prove(dict(witness))
+    cold = time.perf_counter() - t0
+    cold_rounds = {k: round(v * 1e3, 1) for k, v in prover.timings.sections.items()}
+    prover.timings = type(prover.timings)(prover.device)
+    t0 = time.perf_counter()
+    proof = prover.prove(dict(witness))
+    warm = time.perf_counter() - t0
+    rounds = {k: round(v * 1e3, 1) for k, v in prover.timings.sections.items()}
+    peak = torch.cuda.max_memory_allocated()
+    vk = setup.verification_key(prover.pk)
+    launches = launches_since_reset(torch, cuda_lib, "zk-turbo-lookup-2^18")
+    t0 = time.perf_counter()
+    for verify in (vk.verify_proof, vk.verify_proof_unoptimized):
+        if not verify(n, proof, []):
+            fail(f"the blinded n = {n} turbo + lookup proof fails {verify.__name__}")
+    t_verify = time.perf_counter() - t0
+    flat = proof.flatten()
+    if len(flat) != 27 or any(v is None for v in flat.values()):
+        fail(f"the blinded n = {n} turbo + lookup proof has {len(flat)} fields or an identity")
+    fallback = "none" if launches["K6"] == 0 else f"{launches['K6']} K6 launches"
+    print(f"[10c] blinded turbo + lookup n = {n} ({n - 8} gates, table_bits {bits}, {BLIND_ROWS} "
+          f"blinding rows) on phase 10(b)'s SRS: both verifiers accept ({t_verify:.2f} s); "
+          f"program + witness {t_build:.2f} s, Prover() {t_init:.2f} s, cold prove {cold:.3f} s "
+          f"(rounds ms {json.dumps(cold_rounds)}), warm prove {warm:.3f} s, warm rounds ms "
+          f"{json.dumps(rounds)}; round 1 commits A, B, C (m = n) and the blinded f, h1, h2 "
+          f"(m = n + 2, n + 3, n + 3) in one commit_batch, round 2 the blinded Z and Z2 "
+          f"(m = n + 3); msm3 tables {setup.msm_engine._tab16_n} wide; commits that took the "
+          f"msm2 fallback: {fallback}; peak device memory {peak / 2**30:.2f} GiB; launches over "
+          f"the two proofs and the key {json.dumps(launches)}", flush=True)
+    breakdown = device_breakdown(torch, lambda: prover.prove(dict(witness)))
+    print(f"[10c] profiled warm prove: {json.dumps(breakdown)}", flush=True)
+    return launches
+
+
+def _lookup_ints(proof) -> dict:
+    out = {k: tuple(int(c) for c in getattr(proof, k))
+           for k in ("f_1", "h1_1", "h2_1", "z_1", "q_1", "W_z_1", "W_zw_1")}
+    out.update({f"eval_{k}": int(v) for k, v in proof.evals.items()})
+    return out
+
+
+def _f_eval_changed(proof):
+    from dataclasses import replace
+
+    from plonkathon_tpu_torch.fields import FR_MOD
+
+    return replace(proof, evals={**proof.evals, "f": (proof.evals["f"] + 1) % FR_MOD})
+
+
+def plookup_small_phase(ptt, torch, cuda_lib):
+    """11(a): the standalone plookup at n = 8 on the ceremony SRS, card
+    against CPU (no randomness: equal field for field)."""
+    from plonkathon_tpu_torch.lookup import prove_lookup, verify_lookup
+
+    t0 = time.perf_counter()
+    table, witness = [1, 5, 7, 11, 13, 17, 19, 23], [5, 13, 1, 5, 23, 7, 7]
+    torch.cuda.reset_peak_memory_stats()
+    flats = {}
+    for dev in ("cuda", "cpu"):
+        setup = ptt.Setup.from_file(PTAU, device=dev)
+        cuda_lib.reset_launches()
+        proof = prove_lookup(setup, table, witness)
+        flats[dev] = _lookup_ints(proof)
+        if dev == "cuda":
+            launches = launches_since_reset(torch, cuda_lib, "plookup-8")
+            if not verify_lookup(setup, table, proof):
+                fail("verify_lookup rejects the card's n = 8 plookup proof")
+            if verify_lookup(setup, table, _f_eval_changed(proof)):
+                fail("verify_lookup accepts the n = 8 plookup proof with evals['f'] + 1")
+    if flats["cuda"] != flats["cpu"]:
+        diff = sorted(k for k in flats["cuda"] if flats["cuda"][k] != flats["cpu"][k])
+        fail(f"plookup n = 8: card and CPU differ in {diff}")
+    print(f"[11a] plookup n = 8 (the JAX tests' TABLE) on the ceremony SRS: the card's proof "
+          f"equals the CPU's field for field ({len(flats['cuda'])} fields); verify_lookup "
+          f"accepts it and rejects it with evals['f'] + 1; card launches "
+          f"{json.dumps(launches)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+def host_ranges(torch, fn, names) -> dict:
+    """ms of host time in the profiler ranges `names` during fn()."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    got = {name: 0.0 for name in names}
+    for evt in prof.events():
+        if evt.name in got:
+            got[evt.name] += evt.time_range.elapsed_us() / 1e3
+    return got
+
+
+def plookup_large_phase(ptt, torch, np, cuda_lib, setup, n: int):
+    """11(b): the 16-bit range table at n = 2^16 and n - 1 seeded witness
+    values on `setup` (phase 7's 2^18 SRS: 3n powers for the quotient);
+    returns the launches over the proof."""
+    from plonkathon_tpu_torch.lookup import prove_lookup, verify_lookup
+    from plonkathon_tpu_torch.ops.curve import FixedBaseMSM
+
+    rng = np.random.default_rng(BLIND_SEED)
+    table = list(range(n))
+    witness = rng.integers(0, n, size=n - 1).tolist()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    proof = prove_lookup(setup, table, witness)
+    t_prove = time.perf_counter() - t0
+    launches = launches_since_reset(torch, cuda_lib, "plookup-2^16")
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    ok = verify_lookup(setup, table, proof)
+    t_verify = time.perf_counter() - t0
+    if not ok:
+        fail(f"verify_lookup rejects the n = {n} plookup proof")
+    if verify_lookup(setup, table, _f_eval_changed(proof)):
+        fail(f"verify_lookup accepts the n = {n} plookup proof with evals['f'] + 1")
+    names = ("plookup_host_horner", "plookup_host_division")
+    host = host_ranges(torch, lambda: prove_lookup(setup, table, witness), names)
+    route = "msm3" if 3 * n >= FixedBaseMSM._MSM3_MIN else "msm2"
+    fallback = "none" if launches["K6"] == 0 else f"{launches['K6']} K6 launches"
+    print(f"[11b] plookup n = {n}, table range(2**16), {n - 1} seeded witness values, on "
+          f"phase 7's SRS: verify_lookup accepts (and rejects evals['f'] + 1); prove "
+          f"{t_prove:.3f} s, verify {t_verify:.3f} s; host Horner over 3n coefficients "
+          f"{host[names[0]]:.1f} ms, host synthetic division {host[names[1]]:.1f} ms (a "
+          f"second, profiled proof); the q commit (m = 3n = {3 * n}) by {route}; commits "
+          f"that took the msm2 fallback: {fallback}; peak device memory {peak / 2**30:.2f} GiB; "
+          f"launches {json.dumps(launches)}", flush=True)
+    return launches
+
+
+def batch_small_phase(ptt, torch, cuda_lib):
+    """12(a): BatchProver over the fixture circuit, B = 2, on the card."""
+    from plonkathon_tpu_torch.parallel.batch import BatchProver
+
+    t0 = time.perf_counter()
+    setup = ptt.Setup.from_file(PTAU)
+    program = ptt.Program(["e public", "c <== a * b", "e <== c * d"], 8)
+    witnesses = [{"a": 3, "b": 4, "c": 12, "d": 5, "e": 60},
+                 {"a": 2, "b": 5, "c": 10, "d": 7, "e": 70}]
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    proofs = BatchProver(setup, program).prove_batch([dict(w) for w in witnesses])
+    launches = launches_since_reset(torch, cuda_lib, "batch-8")
+    fixture = ptt.load_proof_pickle(os.path.join(FIXTURES, "proof.pickle")).flatten()
+    if proofs[0].flatten() != fixture:
+        fail("BatchProver: proof 0 of the fixture circuit is not proof.pickle")
+    if proofs[1].flatten() != ptt.Prover(setup, program).prove(dict(witnesses[1])).flatten():
+        fail("BatchProver: proof 1 differs from the single proof of its witness")
+    print(f"[12a] BatchProver, fixture circuit, B = 2: proof 0 equals proof.pickle, proof 1 "
+          f"the single proof of its witness, field for field; launches {json.dumps(launches)}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+
+
+def batch_large_phase(ptt, torch, cuda_lib, prover, b: int):
+    """12(b): B mul-chain witnesses at phase 7's n on phase 7's setup and
+    program: the batch against B single proofs, field for field, and its
+    K2 launches against one single warm proof's; returns the batch's
+    launches."""
+    from plonkathon_tpu_torch.parallel.batch import BatchProver
+
+    program, n = prover.program, prover.group_order
+    t0 = time.perf_counter()
+    witnesses = [chain_witness(n, a) for a in (3, 5, 7, 11)[:b]]
+    t_wit = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = BatchProver(prover.setup, program)
+    t_init = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    single0 = prover.prove(dict(witnesses[0]))
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    single_launches = dict(cuda_lib.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    proofs = batch.prove_batch([dict(w) for w in witnesses])
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = launches_since_reset(torch, cuda_lib, "batch-2^18")
+    if launches["K2"] > single_launches["K2"]:
+        fail(f"the B = {b} batch took {launches['K2']} K2 launches, one single proof "
+             f"{single_launches['K2']}")
+    singles = [single0] + [prover.prove(dict(w)) for w in witnesses[1:]]
+    for i, (got, want) in enumerate(zip(proofs, singles)):
+        if got.flatten() != want.flatten():
+            fail(f"BatchProver: proof {i} of the n = {n} batch differs from its single proof")
+    vk = prover.setup.verification_key(batch.pk)
+    for i in (0, b - 1):
+        if not vk.verify_proof(n, proofs[i], [witnesses[i]["out"]]):
+            fail(f"BatchProver: proof {i} of the n = {n} batch does not verify")
+    print(f"[12b] BatchProver, mul-chain n = {n}, B = {b} on phase 7's setup: every proof "
+          f"equals the single proof of its witness, field for field, the first and last "
+          f"verify; batch {t_batch:.3f} s "
+          f"against {b} x the single warm proof {t_single:.3f} s = {b * t_single:.3f} s; "
+          f"peak device memory {peak / 2**30:.2f} GiB (phase 7's setup and tables resident); "
+          f"witnesses {t_wit:.2f} s, BatchProver() {t_init:.2f} s; K2 launches batch "
+          f"{launches['K2']}, one single proof {single_launches['K2']}; batch launches "
+          f"{json.dumps(launches)}, single proof launches {json.dumps(single_launches)}",
+          flush=True)
+    return launches
+
+
 def main():
     try:
         import numpy as np
@@ -995,7 +1444,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 7. headline: mul-chain at n = 2^18 on a synthetic SRS
-    setup, launches = synthetic_phase(
+    setup, launches, chain_prover = synthetic_phase(
         ptt, torch, cuda_lib, HEADLINE_N, "chain-2^18", "[7]", profiled=True
     )
 
@@ -1006,10 +1455,33 @@ def main():
     # n = 2^18 on the headline setup
     turbo_small_phase(ptt)
     turbo_launches = turbo_large_phase(ptt, torch, cuda_lib, setup, HEADLINE_N)
+    torch.cuda.empty_cache()
+
+    # 10. ZK blinding: card against CPU under one blinder stream, then the
+    # blinded chain and turbo + lookup circuits at n = 2^18 on an n + 3 SRS
+    zk_small_phase(ptt, torch, cuda_lib)
+    zk_setup, zk_chain_launches = zk_chain_phase(ptt, torch, cuda_lib, HEADLINE_N)
+    zk_turbo_launches = zk_turbo_phase(ptt, torch, cuda_lib, zk_setup, HEADLINE_N)
+    del zk_setup
+    torch.cuda.empty_cache()
+
+    # 11. the standalone plookup: card against CPU at n = 8, then n = 2^16
+    # on the headline setup
+    plookup_small_phase(ptt, torch, cuda_lib)
+    plookup_launches = plookup_large_phase(ptt, torch, np, cuda_lib, setup, PLOOKUP_N)
+
+    # 12. BatchProver: the fixture, then B chain proofs at n = 2^18
+    batch_small_phase(ptt, torch, cuda_lib)
+    batch_launches = batch_large_phase(ptt, torch, cuda_lib, chain_prover, BATCH)
 
     for r in records:
-        r["launches"] = launches[r["kernel"]]
-        r["launches_turbo_lookup"] = turbo_launches[r["kernel"]]
+        k = r["kernel"]
+        r["launches"] = launches[k]
+        r["launches_turbo_lookup"] = turbo_launches[k]
+        r["launches_zk_chain"] = zk_chain_launches[k]
+        r["launches_zk_turbo_lookup"] = zk_turbo_launches[k]
+        r["launches_plookup"] = plookup_launches[k]
+        r["launches_batch"] = batch_launches[k]
     print(f"chip_smoke: total wall {time.perf_counter() - T_START:.1f} s", flush=True)
     print(smi, flush=True)  # again, where a tail of the output keeps it
     print(json.dumps({"kernels": records}), flush=True)

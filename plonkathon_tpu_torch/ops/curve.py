@@ -68,9 +68,9 @@ class FixedBaseMSM:
 
     Builds affine window tables on the device, packed 16-bit ones for the
     msm3 pipeline and 8-bit ones for msm2, each at first use.  Tables cover
-    the first `need` bases, a power of two grown on demand up to the SRS
-    size, so a small circuit on a large SRS does not pay for the whole
-    table.
+    the first `_need(m)` bases, a power of two plus 3 grown on demand up
+    to the SRS size, so a small circuit on a large SRS does not pay for the
+    whole table.
     """
 
     _MSM3_MIN = 8192  # smallest m routed to the 16-bit-window pipeline
@@ -86,7 +86,13 @@ class FixedBaseMSM:
         self._tab16_n = 0
 
     def _need(self, m: int) -> int:
-        return min(self.n, 1 << max(m - 1, 0).bit_length())
+        """Bases the tables must cover for a commit of m <= n coefficients:
+        the next power of two at or above m - 3, plus the 3 coefficients a
+        ZK-blinded commit adds to a power-of-two width, and at most the
+        SRS.  So the first commit of n on an SRS of n + 3 powers or more
+        builds tables n + 3 wide, and the blinded commits of n + 2 and
+        n + 3 coefficients need no second build."""
+        return min(self.n, (1 << max(m - 4, 0).bit_length()) + 3)
 
     def _build_affine(self, m: int):
         need = self._need(m)

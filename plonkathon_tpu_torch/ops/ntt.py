@@ -30,16 +30,17 @@ def _root_host(n: int, inverse: bool) -> int:
 def scalar_powers(offset, n: int):
     """[1, offset, offset^2, ..., offset^(n-1)] in Montgomery form.
 
-    offset: int32[16] (Montgomery).  Log-depth doubling construction."""
-    pw = fr.const("ONE_MONT", offset.device, 2)
+    offset: int32[16, *batch] (Montgomery) -> int32[16, *batch, n], one
+    row of powers per batch entry.  Log-depth doubling construction."""
+    pw = fr.const("ONE_MONT", offset.device, offset.ndim + 1).expand(offset.shape + (1,))
     length = 1
     while length < n:
-        step = pw[:, length - 1 : length]
-        top = fr.mul(step, offset[:, None])  # offset^length
+        step = pw[..., length - 1 : length]
+        top = fr.mul(step, offset[..., None])  # offset^length
         ext = fr.mul(pw, top)
-        pw = torch.cat([pw, ext], dim=1)
+        pw = torch.cat([pw, ext], dim=-1)
         length *= 2
-    return pw[:, :n]
+    return pw[..., :n]
 
 
 def _roots_impl(n: int, inverse: bool, device):

@@ -15,13 +15,24 @@ commitment through the fixed-base MSM engine (msm2, or msm3 from m = 8192); only
 host between rounds, and each round fetches its commitments once.
 
 Extensions, as in the JAX package: the TurboPlonK cube gate (a QCUBE
-selector; the quotient gains q_cube * A^3 and R gains QCUBE * a_eval^3) and
+selector; the quotient gains q_cube * A^3 and R gains QCUBE * a_eval^3),
 PlonKup lookups (plonkup.py: round 1 also commits f, h1, h2, round 2 the
 lookup grand product Z2, round 3 folds five identities in at alpha^3 ...
-alpha^7, round 4 opens eight more values, round 5 linearizes them).  ZK
-blinding rows (ROADMAP Queue 1, item 3) and the mesh-sharded rounds (item
-6) raise NotImplementedError naming that item; the batch prover (item 5)
-comes with its own slice.
+alpha^7, round 4 opens eight more values, round 5 linearizes them) and ZK
+blinding (`Program(blinding_rows=t)`): the wires' last t rows take fresh
+random values, and Z (with lookups also f, h1, h2 and Z2) gains a
+Z_H-multiple r(X) * (X^n - 1) with fresh coefficients, so those commits
+are n + 2 or n + 3 coefficients wide and need an SRS of n + 3 powers.
+Blinders come from `secrets.randbelow`, in the JAX package's order.  The
+mesh-sharded rounds (ROADMAP Queue 1, item 6) raise NotImplementedError
+naming that item; B proofs of one circuit at once are parallel/batch.py's.
+
+The round algebra (`_perm_grand_product`, `_prefix_product`,
+`_quotient_impl`, `_linearization_impl`, `_coset_lift`, `_coset_x_impl`)
+takes per-proof rows [16, *batch, w], scalars [16, *batch] and static rows
+broadcastable to the rows.  The prover's rounds carry a batch axis B:
+`prove` runs them with B = 1, and parallel/batch.py's BatchProver with B
+witnesses at once, each with its own transcript.
 
 `debug=True` enables the internal invariant checks (gate constraint, Z
 closure, quotient degree, T split, R(zeta) = 0, W degrees; with lookups
@@ -30,6 +41,7 @@ also the query column f and the Z2 closure).
 
 from __future__ import annotations
 
+import secrets
 from dataclasses import dataclass
 
 import numpy as np
@@ -91,27 +103,63 @@ class Proof:
 # Round algebra.
 # ---------------------------------------------------------------------------
 
+def _blinders(count: int) -> list[int]:
+    """`count` fresh blinding scalars from a cryptographic generator.  A
+    predictable blinder leaks the witness, so never torch's or numpy's
+    generators; every draw of the prover goes through here."""
+    return [secrets.randbelow(FR_MOD) for _ in range(count)]
+
+
 def _rlc(x, y, beta, gamma):
     return fr.add(fr.add(x, fr.mul(beta, y)), gamma)
 
 
 def _prefix_product(f, g):
-    """Z[0]=1; Z[i] = prod_{j<i} f[j]/g[j]; also returns the closing value."""
+    """Z[0]=1; Z[i] = prod_{j<i} f[j]/g[j] along the last axis of
+    [16, *batch, n]; also returns the closing values [16, *batch]."""
     n = f.shape[-1]
     steps = max((n - 1).bit_length(), 1)
     pos = torch.arange(n, device=f.device)
-    one = fr.const("ONE_MONT", f.device, 2)
+    one = fr.const("ONE_MONT", f.device, f.ndim)
     cf, cg = f, g
     for j in range(steps):
         shift = 1 << j
-        valid = (pos >= shift)[None]
+        valid = pos >= shift
         inf = torch.where(valid, torch.roll(cf, shift, dims=-1), one)
         ing = torch.where(valid, torch.roll(cg, shift, dims=-1), one)
         cf, cg = fr.mul(inf, cf), fr.mul(ing, cg)
     z_all = fr.mul(cf, fr.batch_inv(cg))
-    z_last = z_all[:, -1]
-    z = torch.cat([one, z_all[:, :-1]], dim=-1)
+    z_last = z_all[..., -1]
+    z = torch.cat([one.expand(f.shape[:-1] + (1,)), z_all[..., :-1]], dim=-1)
     return z, z_last
+
+
+def _perm_grand_product(a, b, c, s1, s2, s3, roots, beta, gamma):
+    """Round 2's permutation grand product Z (Lagrange values) and its
+    closing value: rows [16, *batch, n], sigmas and roots broadcastable to
+    them, beta and gamma [16, *batch]."""
+    beta, gamma = beta[..., None], gamma[..., None]
+    r2 = fr.add(roots, roots)
+    r3 = fr.add(r2, roots)
+    f = fr.mul(
+        fr.mul(_rlc(a, roots, beta, gamma), _rlc(b, r2, beta, gamma)),
+        _rlc(c, r3, beta, gamma),
+    )
+    g = fr.mul(
+        fr.mul(_rlc(a, s1, beta, gamma), _rlc(b, s2, beta, gamma)),
+        _rlc(c, s3, beta, gamma),
+    )
+    return _prefix_product(f, g)
+
+
+def _zh_blinded(coeffs, blinders):
+    """Monomial coefficients [16, m] of P(X) + r(X) * (X^m - 1), r(X) =
+    sum_j blinders[j] X^j: r_j is subtracted at X^j and added at X^(m+j),
+    so the result is m + len(blinders) wide."""
+    k = len(blinders)
+    dlo = to_device(fr.to_mont_host_many([(-v) % FR_MOD for v in blinders]), coeffs.device)
+    dhi = to_device(fr.to_mont_host_many(blinders), coeffs.device)
+    return torch.cat([fr.add(coeffs[:, :k], dlo), coeffs[:, k:], dhi], dim=1)
 
 
 def _shift1(values):
@@ -125,11 +173,12 @@ def _lookup_z2(f, t, h1, h2, delta, epsilon):
     plonkup.py excludes it through its (x - w^{n-1}) factor):
       num_i = (1+d)(e+f_i)(e(1+d) + t_i + d*t_{i+1})
       den_i = (e(1+d) + h1_i + d*h1_{i+1})(e(1+d) + h2_i + d*h2_{i+1})
-    Returns (Z2 Lagrange values, closing value)."""
+    Rows [16, *batch, n] (t broadcastable to them), delta and epsilon
+    [16, *batch].  Returns (Z2 Lagrange values, closing value)."""
     n = f.shape[-1]
-    one = fr.const("ONE_MONT", f.device, 2)
-    d = delta[:, None]
-    e = epsilon[:, None]
+    one = fr.const("ONE_MONT", f.device, f.ndim)
+    d = delta[..., None]
+    e = epsilon[..., None]
     od = fr.add(one, d)
     ed = fr.mul(e, od)
     num = fr.mul(
@@ -157,10 +206,13 @@ def _coset_x_consts_impl(n: int, device):
 
 
 def _coset_x_impl(offset, offset_n, qroots, w4p):
-    """(X values, Z_H^-1 values, Z_H values) on the 4n coset."""
-    xvals = fr.mul(offset[:, None], qroots)
-    one = fr.const("ONE_MONT", offset.device, 2)
-    zh = fr.sub(fr.mul(offset_n[:, None], w4p), one)
+    """(X values, Z_H^-1 values, Z_H values) on the 4n coset, [16, *batch,
+    4n] for offsets [16, *batch]."""
+    lead = (1,) * (offset.ndim - 1)
+    qroots, w4p = (t.reshape((NLIMBS,) + lead + t.shape[1:]) for t in (qroots, w4p))
+    xvals = fr.mul(offset[..., None], qroots)
+    one = fr.const("ONE_MONT", offset.device, offset.ndim + 1)
+    zh = fr.sub(fr.mul(offset_n[..., None], w4p), one)
     return xvals, fr.batch_inv(zh), zh
 
 
@@ -173,7 +225,8 @@ def _quotient_impl(
     a, b, c, pi, ql, qr, qm, qo, qc, z, zs, s1, s2, s3, l0, xvals, zh_inv,
     beta, gamma, alpha, qcube=None, lookup=None,
 ):
-    """QUOT on the 4n coset (all inputs coset-extended, [16, 4n]).
+    """QUOT on the 4n coset (all inputs coset-extended, [16, *batch, 4n];
+    the challenges [16, *batch]).
 
     `qcube` (optional): the cube-gate selector on the coset; the gate gains
     q_cube * A^3 (degree 4n - 4, inside the 4n domain).
@@ -182,9 +235,9 @@ def _quotient_impl(
     LOOKUP_ROWS and the scalar limbs delta, epsilon, tlast and gl
     (= w^{n-1}); adds the five plookup identities weighted by alpha^3 ...
     alpha^7."""
-    beta = beta[:, None]
-    gamma = gamma[:, None]
-    alpha = alpha[:, None]
+    beta = beta[..., None]
+    gamma = gamma[..., None]
+    alpha = alpha[..., None]
     gate = fr.add(
         fr.add(
             fr.add(fr.mul(a, ql), fr.mul(b, qr)),
@@ -211,16 +264,16 @@ def _quotient_impl(
         zs,
     )
     perm = fr.mul(alpha, fr.sub(num, den))
-    one = fr.const("ONE_MONT", a.device, 2)
+    one = fr.const("ONE_MONT", a.device, a.ndim)
     start = fr.mul(fr.mul(fr.mul(alpha, alpha), fr.sub(z, one)), l0)
     ident = fr.add(gate, fr.add(perm, start))
     if lookup is not None:
         lk = lookup
-        delta = lk["delta"][:, None]
-        eps = lk["epsilon"][:, None]
+        delta = lk["delta"][..., None]
+        eps = lk["epsilon"][..., None]
         od = fr.add(one, delta)                 # 1 + delta
         ed = fr.mul(eps, od)                    # epsilon * (1 + delta)
-        xm = fr.sub(xvals, lk["gl"][:, None])   # x - w^{n-1}
+        xm = fr.sub(xvals, lk["gl"][..., None])  # x - w^{n-1}
         z2m1 = fr.sub(lk["z2"], one)
         t_a = fr.mul(l0, z2m1)
         t_b = fr.sub(
@@ -239,7 +292,7 @@ def _quotient_impl(
         t_c = fr.mul(lk["ln"], fr.sub(lk["h1"], lk["h2s"]))
         t_d = fr.mul(lk["ln"], z2m1)
         # f well-formedness: q_K*(a - f) + (1 - q_K)*(t_last - f).
-        tl = fr.sub(lk["tlast"][:, None], lk["f"])
+        tl = fr.sub(lk["tlast"][..., None], lk["f"])
         t_e = fr.add(
             fr.mul(lk["qk"], fr.sub(a, lk["f"])),
             fr.mul(fr.sub(one, lk["qk"]), tl),
@@ -284,7 +337,7 @@ def _linearization_impl(
     the three linearized commitment terms and the constant; W_z batches
     (f, t, h1, h2) at v^6 ... v^9; W_zw becomes the RLC of (z, t, h1, h2,
     z2) at v^0 ... v^4."""
-    S = lambda x: x[:, None]  # noqa: E731
+    S = lambda x: x[..., None]  # noqa: E731
     (a, b, c, _pi, ql, qr, qm, qo, qc, z, _zs, s1, s2, s3, _l0) = bigs
 
     beta_, gamma_, alpha_, zeta_ = S(beta), S(gamma), S(alpha), S(zeta)
@@ -314,7 +367,7 @@ def _linearization_impl(
     )
     sf = fr.mul(sf, S(zw_ev))
     perm = fr.mul(alpha_, fr.sub(zf, sf))
-    one = fr.const("ONE_MONT", a.device, 2)
+    one = fr.const("ONE_MONT", a.device, a.ndim)
     start = fr.mul(fr.mul(fr.mul(alpha_, alpha_), S(l0_ev)), fr.sub(z, one))
     t_combined = fr.add(fr.add(t1, fr.mul(t2, S(zeta_n))), fr.mul(t3, S(zeta_2n)))
     r_core = fr.add(gate, fr.add(perm, start))
@@ -353,13 +406,40 @@ def _linearization_impl(
 
 
 def _coset_lift(coeffs, offset, n: int):
-    """Monomial coefficients [16, P, n] -> values on the offset 4n coset."""
-    pw = _ntt.scalar_powers(offset, n)
-    scaled = fr.mul(coeffs, pw[:, None, :])
-    pad = torch.zeros(
-        (NLIMBS, coeffs.shape[1], 3 * n), dtype=DTYPE, device=coeffs.device
+    """Monomial coefficients [16, *batch, P, m], m <= 4n (n + 3 for
+    blinded rows), -> values on the offset 4n coset [16, *batch, P, 4n];
+    offset [16, *batch]."""
+    m = coeffs.shape[-1]
+    pw = _ntt.scalar_powers(offset, m)
+    scaled = fr.mul(coeffs, pw[..., None, :])
+    pad = torch.zeros(coeffs.shape[:-1] + (4 * n - m,), dtype=DTYPE, device=coeffs.device)
+    return _ntt.ntt(torch.cat([scaled, pad], dim=-1))
+
+
+def _vanilla_rows(a, b, c, pi, z, selectors, sigmas):
+    """Round 3's 15 vanilla rows [16, *batch, 15, n]: a, b, c, pi, the five
+    selectors, z, z(wX), the three sigmas and L_0.  a, b, c, pi, z are
+    [16, *batch, n]; selectors [16, 5, n] and sigmas [16, 3, n] are the
+    circuit's, shared by every batch entry."""
+    shape = a.shape[:-1]
+    n = a.shape[-1]
+    l0 = torch.zeros((NLIMBS, 1, n), dtype=DTYPE, device=a.device)
+    l0[:, 0, 0] = fr.const("ONE_MONT", a.device)
+
+    def shared(rows):
+        lead = (1,) * (len(shape) - 1)
+        return rows.reshape((NLIMBS,) + lead + rows.shape[1:]).expand(shape + rows.shape[1:])
+
+    return torch.cat(
+        [
+            torch.stack([a, b, c, pi], dim=-2),
+            shared(selectors),
+            torch.stack([z, _shift1(z)], dim=-2),
+            shared(sigmas),
+            shared(l0),
+        ],
+        dim=-2,
     )
-    return _ntt.ntt(torch.cat([scaled, pad], dim=2))
 
 
 # ---------------------------------------------------------------------------
@@ -385,10 +465,6 @@ class Prover:
                 f"program on {program.device}"
             )
         self.config = config or ProverConfig(debug_checks=debug)
-        if getattr(program, "blinding_rows", 0):
-            raise NotImplementedError(
-                "ZK blinding rows arrive with ROADMAP Queue 1, item 3"
-            )
         if self.config.mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded proving arrives with torch.distributed "
@@ -402,6 +478,14 @@ class Prover:
         self.timings = Timings(self.device)
         self._custom = program.has_custom_gates
         self._lookup = program.has_lookups
+        self._blind = program.blinding_rows > 0
+        if self._blind:
+            # Z (and with lookups h1, h2, Z2) gains a Z_H-multiple of degree
+            # n + 2, so those commits and the openings need 3 more powers.
+            assert setup.msm_engine.n >= self.group_order + 3, (
+                "ZK blinding requires an SRS with at least group_order + 3 "
+                "G1 powers"
+            )
         # Round-1 witness gather plan: wire slot -> unique-variable id, so
         # each proof encodes every distinct witness value once and builds
         # the A/B/C columns with one numpy fancy-index.
@@ -425,7 +509,7 @@ class Prover:
             [pk.QL.values, pk.QR.values, pk.QM.values, pk.QO.values, pk.QC.values],
             dim=1,
         )
-        self._s_stack = (pk.S1.values, pk.S2.values, pk.S3.values)
+        self._sigma_stack = torch.stack([pk.S1.values, pk.S2.values, pk.S3.values], dim=1)
         # Round 3's coset stack: 15 vanilla rows, QCUBE, then LOOKUP_ROWS.
         self._lookup_base = 16 if self._custom else 15
         if self._lookup:
@@ -441,52 +525,79 @@ class Prover:
                 if c.coeffs.get("$lookup")
             ]
 
-    def _s(self, x) -> torch.Tensor:
-        """Fr -> [16] Montgomery limbs on the prover's device."""
-        return fr.scalar(int(x), self.device)
+    def _col(self, values) -> torch.Tensor:
+        """Per-proof host scalars -> [16, B] Montgomery limbs on the
+        prover's device."""
+        return to_device(fr.to_mont_host_many(values), self.device)
 
-    def _commits(self, coeffs, count: int):
-        """Monomial coefficient stack [16, count, m] -> host affine points,
-        with one host fetch for the whole round."""
-        return self.setup.msm_engine.commit_batch(
-            [coeffs[:, i, :] for i in range(count)]
-        )
+    def _shared(self, rows) -> torch.Tensor:
+        """A circuit row [16, n] as [16, B, n]: the same for every proof."""
+        return rows[:, None, :].expand(NLIMBS, self._nb, self.group_order)
 
-    def prove(self, witness: dict) -> Proof:
-        transcript = Transcript(b"plonk")
-        # Like the reference, pk and PI are not absorbed — required for
-        # bit-identical challenge streams.
-        witness = dict(witness)
+    def _commits(self, polys):
+        """Per-proof lists of monomial coefficient rows [16, m] -> per-proof
+        lists of host affine points: every commit of the round in one
+        commit_batch, one host fetch."""
+        points = self.setup.msm_engine.commit_batch([p for row in polys for p in row])
+        k = len(polys[0])
+        return [points[i * k : (i + 1) * k] for i in range(len(polys))]
+
+    @staticmethod
+    def _rows(stack):
+        """A coefficient stack [16, B, count, m] -> per-proof row lists."""
+        return [[stack[:, i, j, :] for j in range(stack.shape[2])] for i in range(stack.shape[1])]
+
+    def _pi_limbs(self, witness: dict) -> np.ndarray:
+        """PI's Lagrange values, -public input on its row and 0 elsewhere,
+        as Montgomery limbs int32[16, n]."""
         public_vars = self.program.get_public_assignments()
-        n = self.group_order
-        pi_arr = np.zeros((NLIMBS, n), dtype=np.int32)
+        pi_arr = np.zeros((NLIMBS, self.group_order), dtype=np.int32)
         if public_vars:
             pi_arr[:, : len(public_vars)] = fr.to_mont_host_many(
                 [(-int(witness[v])) % FR_MOD for v in public_vars]
             )
-        self.PI = Polynomial(to_device(pi_arr, self.device), Basis.LAGRANGE)
+        return pi_arr
+
+    def prove(self, witness: dict) -> Proof:
+        return self._prove_batch([witness])[0]
+
+    def _prove_batch(self, witnesses: list[dict]) -> list[Proof]:
+        """Proofs of B witnesses of this circuit.  Each round runs once over
+        [16, B, ...] tensors (B = 1 for `prove`) and commits all B proofs'
+        polynomials in one commit_batch; each proof keeps its own
+        Fiat-Shamir transcript on the host, so proof i is the one `prove`
+        gives for witness i."""
+        transcripts = [Transcript(b"plonk") for _ in witnesses]
+        # Like the reference, pk and PI are not absorbed — required for
+        # bit-identical challenge streams.
+        witnesses = [dict(w) for w in witnesses]
+        self._nb = len(witnesses)
+        self.PI = to_device(np.stack([self._pi_limbs(w) for w in witnesses], axis=1), self.device)
 
         with self.timings.section("round_1"):
-            msg_1 = self.round_1(witness)
-        self.beta, self.gamma = transcript.round_1(msg_1)
+            msg_1 = self.round_1(witnesses)
+        self.beta, self.gamma = zip(*(t.round_1(m) for t, m in zip(transcripts, msg_1)))
         if self._lookup:
-            self.delta, self.epsilon = transcript.delta, transcript.epsilon
+            self.delta = [t.delta for t in transcripts]
+            self.epsilon = [t.epsilon for t in transcripts]
 
         with self.timings.section("round_2"):
             msg_2 = self.round_2()
-        self.alpha, self.fft_cofactor = transcript.round_2(msg_2)
+        self.alpha, self.fft_cofactor = zip(*(t.round_2(m) for t, m in zip(transcripts, msg_2)))
 
         with self.timings.section("round_3"):
             msg_3 = self.round_3()
-        self.zeta = transcript.round_3(msg_3)
+        self.zeta = [t.round_3(m) for t, m in zip(transcripts, msg_3)]
 
         with self.timings.section("round_4"):
             msg_4 = self.round_4()
-        self.v = transcript.round_4(msg_4)
+        self.v = [t.round_4(m) for t, m in zip(transcripts, msg_4)]
 
         with self.timings.section("round_5"):
             msg_5 = self.round_5()
-        return Proof(msg_1, msg_2, msg_3, msg_4, msg_5)
+        # Round 3's coset stack is the largest tensor of a proof: free it.
+        self._bigs = self._xvals = self._t_coeffs = None
+        return [Proof(*msgs) for msgs in zip(msg_1, msg_2, msg_3, msg_4, msg_5)]
 
     # -- round 1: wire polynomials ---------------------------------------
     def _lookup_columns(self, witness: dict) -> np.ndarray:
@@ -505,8 +616,15 @@ class Prover:
         s = sorted_by_table(fvals[: n - 1], self._tbl_ints)
         return encode_ints(fvals + s[:n] + s[n - 1 :]).reshape(NLIMBS, 3, n)
 
-    def round_1(self, witness: dict) -> Message1:
+    def _wire_raw(self, witness: dict) -> np.ndarray:
+        """The wire columns A, B, C as raw limbs int32[16, 3, n]: each
+        distinct witness value encoded once, then one gather over the
+        wire plan; with blinding rows, the last t rows of each column take
+        fresh random values (selectors are zero and sigma the identity
+        there, so any values satisfy the constraints)."""
         n = self.group_order
+        t = self.program.blinding_rows
+        tails = [_blinders(t) for _ in range(3)] if t else None
         if None not in witness:
             witness[None] = 0
         var_limbs = encode_ints(
@@ -515,196 +633,275 @@ class Prover:
         m = self._wire_idx.shape[1]
         abc_raw = np.zeros((NLIMBS, 3, n), dtype=np.int32)
         abc_raw[:, :, :m] = var_limbs[:, self._wire_idx]
+        if t:
+            for j in range(3):
+                abc_raw[:, j, n - t :] = encode_ints(tails[j])
+        return abc_raw
+
+    def round_1(self, witnesses: list[dict]) -> list[Message1]:
+        raw = np.stack([self._wire_raw(w) for w in witnesses], axis=1)  # [16, B, 3, n]
         if self._lookup:
             with self.timings.section("round_1_lookup_host"):
-                abc_raw = np.concatenate([abc_raw, self._lookup_columns(witness)], axis=1)
-        cols = fr.to_mont(to_device(abc_raw, self.device))  # [16, 3 (+3), n]
-        self.A = Polynomial(cols[:, 0, :], Basis.LAGRANGE)
-        self.B = Polynomial(cols[:, 1, :], Basis.LAGRANGE)
-        self.C = Polynomial(cols[:, 2, :], Basis.LAGRANGE)
-        # One commit_batch for A, B, C (and f, h1, h2): one host fetch.
-        points = self._commits(_ntt.ntt(cols, inverse=True), cols.shape[1])
-        lk_points = (None, None, None)
+                lk = np.stack([self._lookup_columns(w) for w in witnesses], axis=1)
+            raw = np.concatenate([raw, lk], axis=2)
+        cols = fr.to_mont(to_device(raw, self.device))  # [16, B, 3 (+3), n]
+        self.A, self.B, self.C = (cols[:, :, i, :] for i in range(3))
+        polys = self._rows(_ntt.ntt(cols, inverse=True))
         if self._lookup:
-            self.F = Polynomial(cols[:, 3, :], Basis.LAGRANGE)
-            self.H1 = Polynomial(cols[:, 4, :], Basis.LAGRANGE)
-            self.H2 = Polynomial(cols[:, 5, :], Basis.LAGRANGE)
-            lk_points = tuple(points[3:])
-
+            self.F, self.H1, self.H2 = (cols[:, :, i, :] for i in range(3, 6))
+            if self._blind:
+                # The lookup identities pin f on every row and h1, h2 as
+                # the sorted multiset, so random rows cannot hide them:
+                # Z_H-multiples do, 2 blinders for f (opened at zeta), 3
+                # for h1 and h2 (opened at zeta and zeta * omega).
+                self._lk_blind = []
+                for row in polys:
+                    blinds = (_blinders(2), _blinders(3), _blinders(3))
+                    self._lk_blind.append(blinds)
+                    row[3:] = [_zh_blinded(p, r) for p, r in zip(row[3:], blinds)]
+        # One commit_batch for A, B, C (and f, h1, h2): one host fetch.
+        points = self._commits(polys)
         if self.debug:
-            gate = (
-                self.A * self.pk.QL
-                + self.B * self.pk.QR
-                + self.A * self.B * self.pk.QM
-                + self.C * self.pk.QO
-                + self.PI
-                + self.pk.QC
-            )
-            if self._custom:
-                gate = gate + self.A * self.A * self.A * self.pk.QCUBE
-            assert gate == Polynomial.zeros(n, device=self.device), "gate constraints violated"
-            if self._lookup:
-                t_last = int(self._t_last)
-                assert all(
-                    f == (a if q else t_last)
-                    for f, q, a in zip(
-                        self.F.to_ints(), self.pk.QK.to_ints(), self.A.to_ints()
-                    )
-                ), "query polynomial f malformed"
-        return Message1(*points[:3], *lk_points)
+            for i in range(self._nb):
+                self._check_round_1(i)
+        return [Message1(*p[:3], *(p[3:] if self._lookup else (None, None, None))) for p in points]
+
+    def _check_round_1(self, i: int):
+        """Debug: proof i's gate constraints, and with lookups its f."""
+        pk = self.pk
+        A, B, C, PI = (
+            Polynomial(x[:, i, :], Basis.LAGRANGE) for x in (self.A, self.B, self.C, self.PI)
+        )
+        gate = A * pk.QL + B * pk.QR + A * B * pk.QM + C * pk.QO + PI + pk.QC
+        if self._custom:
+            gate = gate + A * A * A * pk.QCUBE
+        assert gate == Polynomial.zeros(self.group_order, device=self.device), (
+            "gate constraints violated"
+        )
+        if self._lookup:
+            t_last = int(self._t_last)
+            f_ints = fr.from_mont_host_many(self.F[:, i, :])
+            assert all(
+                f == (a if q else t_last)
+                for f, q, a in zip(f_ints, pk.QK.to_ints(), A.to_ints())
+            ), "query polynomial f malformed"
 
     # -- round 2: permutation grand product ------------------------------
-    def round_2(self) -> Message2:
+    def round_2(self) -> list[Message2]:
         n = self.group_order
-        roots = _ntt._roots_impl(n, False, self.device)
-        beta, gamma = self._s(self.beta)[:, None], self._s(self.gamma)[:, None]
-        a, b, c = self.A.values, self.B.values, self.C.values
-        s1, s2, s3 = self._s_stack
-        r2 = fr.add(roots, roots)
-        r3 = fr.add(r2, roots)
-        f = fr.mul(
-            fr.mul(_rlc(a, roots, beta, gamma), _rlc(b, r2, beta, gamma)),
-            _rlc(c, r3, beta, gamma),
+        s1, s2, s3 = (self._sigma_stack[:, None, k, :] for k in range(3))
+        z, z_last = _perm_grand_product(
+            self.A, self.B, self.C, s1, s2, s3, _ntt._roots_impl(n, False, self.device)[:, None, :],
+            self._col(self.beta), self._col(self.gamma),
         )
-        g = fr.mul(
-            fr.mul(_rlc(a, s1, beta, gamma), _rlc(b, s2, beta, gamma)),
-            _rlc(c, s3, beta, gamma),
-        )
-        z, z_last = _prefix_product(f, g)
         if self.debug:
-            assert fr.from_mont_host(z_last) == 1, "grand product does not close"
-        self.Z = Polynomial(z, Basis.LAGRANGE)
+            assert set(fr.from_mont_host_many(z_last)) == {1}, "grand product does not close"
+        self.Z = z
         rows = [z]
         if self._lookup:
             z2, z2_last = _lookup_z2(
-                self.F.values, self.pk.TBL.values, self.H1.values, self.H2.values,
-                self._s(self.delta), self._s(self.epsilon),
+                self.F, self.pk.TBL.values[:, None, :], self.H1, self.H2,
+                self._col(self.delta), self._col(self.epsilon),
             )
             if self.debug:
-                assert fr.from_mont_host(z2_last) == 1, "lookup grand product does not close"
-            self.Z2 = Polynomial(z2, Basis.LAGRANGE)
+                assert set(fr.from_mont_host_many(z2_last)) == {1}, (
+                    "lookup grand product does not close"
+                )
+            self.Z2 = z2
             rows.append(z2)
+        polys = self._rows(_ntt.ntt(torch.stack(rows, dim=2), inverse=True))
+        if self._blind:
+            # Z' = Z + r(X) Z_H(X) with r of degree 2 equals Z on the domain,
+            # but hides the commitment and the zeta * omega opening: random
+            # rows cannot, because sigma is the identity there (their
+            # ratios are 1).  Z2 likewise, with blinders of its own.
+            self._z_blind, self._z2_blind = [], []
+            for row in polys:
+                blinds = [_blinders(3) for _ in row]
+                self._z_blind.append(blinds[0])
+                self._z2_blind.append(blinds[-1])
+                row[:] = [_zh_blinded(p, r) for p, r in zip(row, blinds)]
         # One commit_batch for Z (and Z2): one host fetch.
-        points = self._commits(_ntt.ntt(torch.stack(rows, dim=1), inverse=True), len(rows))
-        return Message2(*points)
+        return [Message2(*p) for p in self._commits(polys)]
 
     # -- round 3: quotient polynomial ------------------------------------
     def _lookup_stack(self) -> torch.Tensor:
-        """Round 3's 11 PlonKup rows in LOOKUP_ROWS order, [16, 11, n]."""
+        """Round 3's 11 PlonKup rows in LOOKUP_ROWS order, [16, B, 11, n]."""
         n = self.group_order
         ln = torch.zeros((NLIMBS, n), dtype=DTYPE, device=self.device)
         ln[:, n - 1] = fr.const("ONE_MONT", self.device)
-        tbl, h1, h2, z2 = (
-            self.pk.TBL.values, self.H1.values, self.H2.values, self.Z2.values
-        )
+        tbl = self.pk.TBL.values
+        h1, h2, z2 = self.H1, self.H2, self.Z2
         return torch.stack(
             [
-                self.F.values, tbl, _shift1(tbl), h1, _shift1(h1),
-                h2, _shift1(h2), z2, _shift1(z2), self.pk.QK.values, ln,
+                self.F, self._shared(tbl), self._shared(_shift1(tbl)), h1, _shift1(h1),
+                h2, _shift1(h2), z2, _shift1(z2), self._shared(self.pk.QK.values),
+                self._shared(ln),
             ],
-            dim=1,
+            dim=2,
         )
 
-    def round_3(self) -> Message3:
-        n = self.group_order
-        off = self.fft_cofactor
-        l0 = torch.zeros((NLIMBS, n), dtype=DTYPE, device=self.device)
-        l0[:, 0] = fr.const("ONE_MONT", self.device)
+    def _blind_deltas(self, rows: int):
+        """Round 3's coefficient deltas (dlo, dhi) [16, B, rows, 3] that add
+        each blinded row's r(X) Z_H(X) after the inverse NTT: -r_j at X^j,
+        r_j at X^(n+j); the omega-shifted rows p(wX) take r_j * w^j.  Z
+        (rows 9, 10) and, with lookups, f, h1, h1(wX), h2, h2(wX), Z2 and
+        Z2(wX); zero elsewhere."""
+        root = Fr.root_of_unity(self.group_order)
+        base = self._lookup_base
+        lo, hi = [], []
+        for i in range(self._nb):
+            lo_i = [[0] * 3 for _ in range(rows)]
+            hi_i = [[0] * 3 for _ in range(rows)]
+
+            def put(row, blinders, shifted=False):
+                r = [int(Fr(v) * root**j) if shifted else v for j, v in enumerate(blinders)]
+                r += [0] * (3 - len(r))
+                lo_i[row] = [(-v) % FR_MOD for v in r]
+                hi_i[row] = r
+
+            put(9, self._z_blind[i])
+            put(10, self._z_blind[i], shifted=True)
+            if self._lookup:
+                rf, rh1, rh2 = self._lk_blind[i]
+                put(base + LOOKUP_ROWS.index("f"), rf)
+                put(base + LOOKUP_ROWS.index("h1"), rh1)
+                put(base + LOOKUP_ROWS.index("h1s"), rh1, shifted=True)
+                put(base + LOOKUP_ROWS.index("h2"), rh2)
+                put(base + LOOKUP_ROWS.index("h2s"), rh2, shifted=True)
+                put(base + LOOKUP_ROWS.index("z2"), self._z2_blind[i])
+                put(base + LOOKUP_ROWS.index("z2s"), self._z2_blind[i], shifted=True)
+            lo += sum(lo_i, [])
+            hi += sum(hi_i, [])
+        return tuple(
+            to_device(fr.to_mont_host_many(d), self.device).reshape(NLIMBS, self._nb, rows, 3)
+            for d in (lo, hi)
+        )
+
+    def round_3(self) -> list[Message3]:
+        n, nb = self.group_order, self._nb
+        offs = self.fft_cofactor
         rows = [
-            torch.stack(
-                [self.A.values, self.B.values, self.C.values, self.PI.values], dim=1
-            ),
-            self._selector_stack,
-            self.Z.values[:, None, :],
-            _shift1(self.Z.values)[:, None, :],
-            torch.stack(self._s_stack, dim=1),
-            l0[:, None, :],
-        ]  # 15 rows
+            _vanilla_rows(
+                self.A, self.B, self.C, self.PI, self.Z,
+                self._selector_stack, self._sigma_stack,
+            )
+        ]
         if self._custom:
-            rows.append(self.pk.QCUBE.values[:, None, :])
+            rows.append(self._shared(self.pk.QCUBE.values)[:, :, None, :])
         if self._lookup:
             rows.append(self._lookup_stack())
-        polys = torch.cat(rows, dim=1)  # [16, 15 (+1) (+11), n]
-        offset = self._s(off)
-        bigs = _coset_lift(_ntt.ntt(polys, inverse=True), offset, n)
+        polys = torch.cat(rows, dim=2)  # [16, B, 15 (+1) (+11), n]
+        offset = self._col(offs)
+        coeffs = _ntt.ntt(polys, inverse=True)
         del polys
+        if self._blind:
+            # The blinded rows' Z_H-multiples raise their degree to n + 2:
+            # the stack grows by 3 coefficients before the coset lift.
+            dlo, dhi = self._blind_deltas(coeffs.shape[2])
+            coeffs = torch.cat([fr.add(coeffs[..., :3], dlo), coeffs[..., 3:], dhi], dim=-1)
+        bigs = _coset_lift(coeffs, offset, n)  # [16, B, rows, 4n]
+        del coeffs
         qroots, w4p = _coset_x_consts_impl(n, self.device)
-        xvals, zh_inv, _zh = _coset_x_impl(offset, self._s(off**n), qroots, w4p)
+        xvals, zh_inv, _zh = _coset_x_impl(offset, self._col([o**n for o in offs]), qroots, w4p)
         quot = _quotient_impl(
-            *[bigs[:, i, :] for i in range(15)], xvals, zh_inv,
-            self._s(self.beta), self._s(self.gamma), self._s(self.alpha),
+            *[bigs[:, :, i, :] for i in range(15)], xvals, zh_inv,
+            self._col(self.beta), self._col(self.gamma), self._col(self.alpha),
             qcube=self._coset_qcube(bigs), lookup=self._coset_lookup(bigs),
         )
-        qcoeffs = _ntt.coset_to_coeffs(quot, self._s(Fr(1) / off))  # [16, 4n]
-        t_coeffs = qcoeffs[:, : 3 * n].reshape(NLIMBS, 3, n)
-        self._t_lag = _ntt.ntt(t_coeffs)  # [16, 3, n]
+        qcoeffs = _ntt.coset_to_coeffs(quot, self._col([Fr(1) / o for o in offs]))  # [16, B, 4n]
+        # T stays in coefficient form: round 5 lifts it to the coset again.
+        self._t_coeffs = qcoeffs[..., : 3 * n].reshape(NLIMBS, nb, 3, n)
         self._bigs = bigs
         self._xvals = xvals
 
         if self.debug:
-            tail = fr.from_mont_host_many(qcoeffs[:, 3 * n :])
-            assert tail == [0] * n, "quotient degree >= 3n"
-            t1, t2, t3 = (
-                Polynomial(self._t_lag[:, i, :], Basis.LAGRANGE) for i in range(3)
-            )
-            lhs = (
-                t1.barycentric_eval(off)
-                + t2.barycentric_eval(off) * off**n
-                + t3.barycentric_eval(off) * off ** (n * 2)
-            )
-            assert lhs == Fr(fr.from_mont_host(quot[:, 0])), "T split mismatch"
+            t_lag = _ntt.ntt(self._t_coeffs)  # [16, B, 3, n]
+            for i, off in enumerate(offs):
+                tail = fr.from_mont_host_many(qcoeffs[:, i, 3 * n :])
+                assert tail == [0] * n, "quotient degree >= 3n"
+                t1, t2, t3 = (Polynomial(t_lag[:, i, k, :], Basis.LAGRANGE) for k in range(3))
+                lhs = (
+                    t1.barycentric_eval(off)
+                    + t2.barycentric_eval(off) * off**n
+                    + t3.barycentric_eval(off) * off ** (n * 2)
+                )
+                assert lhs == Fr(fr.from_mont_host(quot[:, i, 0])), "T split mismatch"
 
-        t_lo_1, t_mid_1, t_hi_1 = self._commits(t_coeffs, 3)
-        return Message3(t_lo_1, t_mid_1, t_hi_1)
+        return [Message3(*p) for p in self._commits(self._rows(self._t_coeffs))]
 
     def _coset_qcube(self, bigs):
         """The QCUBE row of round 3's coset stack, or None."""
-        return bigs[:, 15, :] if self._custom else None
+        return bigs[:, :, 15, :] if self._custom else None
 
     def _coset_lookup(self, bigs):
         """Round 3's PlonKup inputs: the coset rows of LOOKUP_ROWS and the
         scalar limbs delta, epsilon, t_last, w^{n-1}; None without lookups."""
         if not self._lookup:
             return None
-        lookup = {name: bigs[:, self._lookup_base + i, :] for i, name in enumerate(LOOKUP_ROWS)}
-        n = self.group_order
+        lookup = {name: bigs[:, :, self._lookup_base + i, :] for i, name in enumerate(LOOKUP_ROWS)}
+        n, nb = self.group_order, self._nb
         lookup.update(
-            delta=self._s(self.delta), epsilon=self._s(self.epsilon),
-            tlast=self._s(self._t_last), gl=self._s(Fr.root_of_unity(n) ** (n - 1)),
+            delta=self._col(self.delta), epsilon=self._col(self.epsilon),
+            tlast=self._col([self._t_last] * nb),
+            gl=self._col([Fr.root_of_unity(n) ** (n - 1)] * nb),
         )
         return lookup
 
     # -- round 4: openings -------------------------------------------------
-    def round_4(self) -> Message4:
-        n = self.group_order
-        zeta = self.zeta
+    def round_4(self) -> list[Message4]:
+        n, nb = self.group_order, self._nb
         root = Fr.root_of_unity(n)
         rows = [
-            self.A.values, self.B.values, self.C.values,
-            self._s_stack[0], self._s_stack[1], self.Z.values,
+            self.A, self.B, self.C, self._shared(self._sigma_stack[:, 0, :]),
+            self._shared(self._sigma_stack[:, 1, :]), self.Z,
         ]
-        zl, zwl = self._s(zeta), self._s(zeta * root)
-        points = [zl] * 5 + [zwl]
+        shifted = [False] * 5 + [True]
         if self._lookup:
             # f, t at zeta; t, h1, h2 at both; z2 at zeta*omega only
             # (z2(zeta) and q_K(zeta) are linearized away in round 5).
-            tbl = self.pk.TBL.values
-            rows += [
-                self.F.values, tbl, tbl, self.H1.values, self.H1.values,
-                self.H2.values, self.H2.values, self.Z2.values,
-            ]
-            points += [zl, zl, zwl, zl, zwl, zl, zwl, zwl]
-        evs = _barycentric_batch(torch.stack(rows, dim=1), torch.stack(points, dim=1), n)
-        evals = [Fr(v) for v in fr.from_mont_host_many(evs)]
-        (
-            self.a_eval, self.b_eval, self.c_eval,
-            self.s1_eval, self.s2_eval, self.z_shifted_eval,
-        ) = evals[:6]
+            tbl = self._shared(self.pk.TBL.values)
+            rows += [self.F, tbl, tbl, self.H1, self.H1, self.H2, self.H2, self.Z2]
+            shifted += [False, False, True, False, True, False, True, True]
+        k = len(rows)
+        points = self._col([zt * root if s else zt for zt in self.zeta for s in shifted])
+        evs = fr.from_mont_host_many(
+            _barycentric_batch(torch.stack(rows, dim=2).reshape(NLIMBS, nb * k, n), points, n)
+        )
+        self.evals = [[Fr(v) for v in evs[i * k : (i + 1) * k]] for i in range(nb)]
+        if self._blind:
+            for i in range(nb):
+                self._blind_evals(i)
         if not self._lookup:
-            return Message4(*evals)
+            return [Message4(*e) for e in self.evals]
         keys = ("f", "t", "t_w", "h1", "h1_w", "h2", "h2_w", "z2_w")
-        self.lookup_evals = dict(zip(keys, evals[6:]))
-        return Message4(*evals[:6], lookup_evals=self.lookup_evals)
+        self.lookup_evals = [dict(zip(keys, e[6:])) for e in self.evals]
+        return [Message4(*e[:6], lookup_evals=lk) for e, lk in zip(self.evals, self.lookup_evals)]
+
+    def _blind_evals(self, i: int):
+        """Proof i's published openings under blinding: the Lagrange values
+        are the unblinded polynomials'; each blinded one adds r(pt) *
+        Z_H(pt), with Z_H(zeta * w) = Z_H(zeta) = zeta^n - 1 as w^n = 1.
+        evals[6:] are f, t, t_w, h1, h1_w, h2, h2_w, z2_w."""
+        n, zeta = self.group_order, self.zeta[i]
+        zh = zeta**n - 1
+        zw = zeta * Fr.root_of_unity(n)
+        evals = self.evals[i]
+
+        def rev(blinders, pt):
+            acc = Fr(0)
+            for c in reversed(blinders):
+                acc = acc * pt + Fr(c)
+            return acc * zh
+
+        evals[5] += rev(self._z_blind[i], zw)
+        if self._lookup:
+            rf, rh1, rh2 = self._lk_blind[i]
+            for j, r, pt in (
+                (6, rf, zeta), (9, rh1, zeta), (10, rh1, zw),
+                (11, rh2, zeta), (12, rh2, zw), (13, self._z2_blind[i], zw),
+            ):
+                evals[j] += rev(r, pt)
 
     # -- round 5: linearization + opening proofs --------------------------
     def _round5_lookup(self, root):
@@ -715,60 +912,68 @@ class Prover:
             return None
         from .plonkup import linearization_scalars
 
-        e = dict(self.lookup_evals)
-        e["a"] = self.a_eval
-        c_z2, c_h1, c_qk, c_const = linearization_scalars(
-            self.group_order, self.alpha, self.zeta, self.delta, self.epsilon, e,
-            self._t_last, root,
-        )
+        per_proof = []
+        for i in range(self._nb):
+            e = dict(self.lookup_evals[i])
+            e["a"] = self.evals[i][0]
+            c_z2, c_h1, c_qk, c_const = linearization_scalars(
+                self.group_order, self.alpha[i], self.zeta[i], self.delta[i],
+                self.epsilon[i], e, self._t_last, root,
+            )
+            scalars = dict(c_z2=c_z2, c_h1=c_h1, c_qk=c_qk, c_const=c_const)
+            opened = ("f", "t", "h1", "h2", "t_w", "h1_w", "h2_w", "z2_w")
+            scalars.update({f"{k}_ev": e[k] for k in opened})
+            per_proof.append(scalars)
         lookup = {
-            name: self._bigs[:, self._lookup_base + i, :] for i, name in enumerate(LOOKUP_ROWS)
+            name: self._bigs[:, :, self._lookup_base + i, :] for i, name in enumerate(LOOKUP_ROWS)
             if name in ("f", "t", "h1", "h2", "z2", "qk")
         }
-        scalars = dict(c_z2=c_z2, c_h1=c_h1, c_qk=c_qk, c_const=c_const)
-        scalars.update({f"{k}_ev": e[k] for k in ("f", "t", "h1", "h2", "t_w", "h1_w", "h2_w", "z2_w")})
-        lookup.update({k: self._s(x) for k, x in scalars.items()})
+        lookup.update({k: self._col([s[k] for s in per_proof]) for k in per_proof[0]})
         return lookup
 
-    def round_5(self) -> Message5:
+    def round_5(self) -> list[Message5]:
         n = self.group_order
-        zeta = self.zeta
         root = Fr.root_of_unity(n)
-        off = self.fft_cofactor
-        zh_ev = zeta**n - 1
-        l0_ev = zh_ev / (n * (zeta - 1))
-        pi_ev = self.PI.barycentric_eval(zeta)
-        s = self._s
+        zetas, offs, col = self.zeta, self.fft_cofactor, self._col
+        zh_ev = [zt**n - 1 for zt in zetas]
+        zeta = col(zetas)
+        pi_ev = fr.from_mont_host_many(_barycentric_batch(self.PI, zeta, n))
 
         # Expand T1..T3 to the coset (batched).
-        t_big = _coset_lift(_ntt.ntt(self._t_lag, inverse=True), s(off), n)
-        t1, t2, t3 = (t_big[:, i, :] for i in range(3))
+        t_big = _coset_lift(self._t_coeffs, col(offs), n)  # [16, B, 3, 4n]
         r_big, w_z, w_zw = _linearization_impl(
-            [self._bigs[:, i, :] for i in range(15)], t1, t2, t3, self._xvals,
-            s(self.a_eval), s(self.b_eval), s(self.c_eval),
-            s(self.s1_eval), s(self.s2_eval), s(self.z_shifted_eval),
-            s(pi_ev), s(l0_ev), s(zh_ev), s(zeta**n), s(zeta ** (2 * n)),
-            s(self.beta), s(self.gamma), s(self.alpha),
-            s(zeta), s(zeta * root), s(self.v),
+            [self._bigs[:, :, i, :] for i in range(15)],
+            *(t_big[:, :, k, :] for k in range(3)), self._xvals,
+            *(col([e[k] for e in self.evals]) for k in range(6)),
+            col(pi_ev), col([h / (n * (zt - 1)) for h, zt in zip(zh_ev, zetas)]), col(zh_ev),
+            col([zt**n for zt in zetas]), col([zt ** (2 * n) for zt in zetas]),
+            col(self.beta), col(self.gamma), col(self.alpha),
+            zeta, col([zt * root for zt in zetas]), col(self.v),
             qcube=self._coset_qcube(self._bigs),
-            cube_ev=s(self.a_eval**3) if self._custom else None,
+            cube_ev=col([e[0] ** 3 for e in self.evals]) if self._custom else None,
             lookup=self._round5_lookup(root),
         )
-        offinv = s(Fr(1) / off)
-        w_z_coeffs = _ntt.coset_to_coeffs(w_z, offinv)
-        w_zw_coeffs = _ntt.coset_to_coeffs(w_zw, offinv)
+        del t_big
+        offinv = col([Fr(1) / o for o in offs])
+        w_coeffs = _ntt.coset_to_coeffs(torch.stack([w_z, w_zw], dim=2), offinv[..., None])
+        # A blinded Z' (degree n + 2) raises the opening quotients to n + 1.
+        wlen = n + 3 if self._blind else n
 
         if self.debug:
-            r_coeffs = Polynomial(r_big, Basis.LAGRANGE).coset_extended_lagrange_to_coeffs(off)
-            r_poly = Polynomial(r_coeffs.values[:, :n], Basis.MONOMIAL).fft()
-            assert r_poly.barycentric_eval(zeta) == 0, "R(zeta) != 0"
-            assert fr.from_mont_host_many(w_z_coeffs[:, n:]) == [0] * (3 * n), (
-                "W_z degree too large"
-            )
-            assert fr.from_mont_host_many(w_zw_coeffs[:, n:]) == [0] * (3 * n), (
-                "W_zw degree too large"
-            )
+            for i, (off, zt) in enumerate(zip(offs, zetas)):
+                r_lag = Polynomial(r_big[:, i, :], Basis.LAGRANGE)
+                r_coeffs = r_lag.coset_extended_lagrange_to_coeffs(off)
+                if self._blind:
+                    # R has degree n + 2 under blinding: Horner over all of it.
+                    r_at_zeta = Fr(0)
+                    for c in reversed(r_coeffs.to_ints()):
+                        r_at_zeta = r_at_zeta * zt + Fr(c)
+                else:
+                    r_poly = Polynomial(r_coeffs.values[:, :n], Basis.MONOMIAL).fft()
+                    r_at_zeta = r_poly.barycentric_eval(zt)
+                assert r_at_zeta == 0, "R(zeta) != 0"
+                for j, name in enumerate(("W_z", "W_zw")):
+                    tail = fr.from_mont_host_many(w_coeffs[:, i, j, wlen:])
+                    assert tail == [0] * (4 * n - wlen), f"{name} degree too large"
 
-        both = torch.stack([w_z_coeffs[:, :n], w_zw_coeffs[:, :n]], dim=1)
-        W_z_1, W_zw_1 = self._commits(both, 2)
-        return Message5(W_z_1, W_zw_1)
+        return [Message5(*p) for p in self._commits(self._rows(w_coeffs[..., :wlen]))]

@@ -16,12 +16,16 @@ def jax_g1(pt):
     return None if pt is None else (JaxFq(int(pt[0])), JaxFq(int(pt[1])))
 
 
+def jax_g2(pt):
+    return tuple(JaxFq2(list(c.coeffs)) for c in pt)
+
+
 def jax_vk(vk):
     """The JAX package's VerificationKey with the port key's points."""
     return jax_verifier.VerificationKey(
         vk.group_order,
         *(jax_g1(getattr(vk, k)) for k in G1_KEYS),
-        tuple(JaxFq2(list(c.coeffs)) for c in vk.X_2),
+        jax_g2(vk.X_2),
         JaxFr(int(vk.w)),
         Qcube=jax_g1(vk.Qcube), Qk=jax_g1(vk.Qk), Tbl=jax_g1(vk.Tbl),
         t_last=None if vk.t_last is None else JaxFr(int(vk.t_last)),

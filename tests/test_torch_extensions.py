@@ -1,37 +1,56 @@
-"""Extensions of the JAX package that the port does not have yet raise
-NotImplementedError naming the ROADMAP Queue 1 item that brings them (CPU):
-ZK blinding rows (item 3), alone and composed at the Program level with a
-lookup table or with cube gates, and a device mesh (item 6).
+"""Extensions of the JAX package through the port's prover (CPU): ZK
+blinding rows, alone and composed at the Program level with a lookup table
+or with cube gates, prove and verify under both port verifiers and the JAX
+package's host verifier (by integer coordinates); a device mesh still
+raises NotImplementedError naming ROADMAP Queue 1, item 6.
 """
 
 import os
 
 import pytest
+import torch
 
 from plonkathon_tpu_torch import Program, Prover, Setup
 from plonkathon_tpu_torch.config import ProverConfig
 
+from _torch_jax_bridge import jax_proof, jax_vk
+
+torch.set_num_threads(1)  # small tensors: threads only contend with xdist
+
 PTAU = os.path.join(os.path.dirname(__file__), "fixtures", "powersOfTau28_hez_final_11.ptau")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return Setup.from_file(PTAU, device="cpu")
 
 
 @pytest.mark.parametrize(
     "kwargs,match",
     [
-        (dict(lines=["c <== a * b"], blinding_rows=3), "item 3"),
+        (dict(lines=["c <== a * b"], blinding_rows=3, inputs={"a": 3, "b": 4}), None),
         (dict(lines=["x lookup", "y <== x * x"], lookup_table=[0, 1, 2],
-              blinding_rows=2), "item 3"),
-        (dict(lines=["y <== x * x * x"], custom_gates=True, blinding_rows=2), "item 3"),
+              blinding_rows=2, inputs={"x": 2}), None),
+        (dict(lines=["y <== x * x * x"], custom_gates=True, blinding_rows=2,
+              inputs={"x": 3}), None),
         (dict(lines=["c <== a * b"], mesh=True), "item 6"),
     ],
     ids=["blinding", "blinding-with-lookups", "blinding-with-cube-gates", "mesh"],
 )
-def test_extensions_outside_the_slice_raise(kwargs, match):
-    setup = Setup.from_file(PTAU, device="cpu")
+def test_extensions_outside_the_slice_raise(setup, kwargs, match):
     mesh = kwargs.pop("mesh", False)
     lines = kwargs.pop("lines")
-    # The frontend composes blinding rows with lookups and cube gates (as
-    # the JAX package's does); the port's prover refuses them.
+    inputs = kwargs.pop("inputs", None)
     program = Program(lines, 8, device="cpu", **kwargs)
-    config = ProverConfig(mesh=object()) if mesh else None
-    with pytest.raises(NotImplementedError, match=match):
-        Prover(setup, program, config=config, device="cpu")
+    if mesh:
+        with pytest.raises(NotImplementedError, match=match):
+            Prover(setup, program, config=ProverConfig(mesh=object()), device="cpu")
+        return
+    witness = program.fill_variable_assignments(inputs)
+    proof = Prover(setup, program, device="cpu").prove(dict(witness))
+    vk = setup.verification_key(program.common_preprocessed_input())
+    assert vk.verify_proof(8, proof, [])
+    assert vk.verify_proof_unoptimized(8, proof, [])
+    assert jax_vk(vk).verify_proof(8, jax_proof(proof), [])
+    # ...and not against a public input it was not made for.
+    assert not vk.verify_proof(8, proof, [1])

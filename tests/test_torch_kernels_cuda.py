@@ -4,7 +4,10 @@ Each test builds its inputs with numpy.random.default_rng, launches the
 kernel on CUDA tensors and compares the result with the kernel's plain
 torch version in raw limbs, exactly (integer arithmetic).  Edge lanes: 0,
 p-1, 2p-1, the identity, P = Q, P = -Q and P + Q; for the packed incomplete
-adds K3 and K4 every value of their mask bits.
+adds K3 and K4 every value of their mask bits.  Two tests hold paths
+rather than one kernel: a commit 2^18 + 3 wide (ZK blinding's width) by
+msm3 against msm2 on the card, and the standalone plookup's proof on the
+card against the CPU's.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with the card and no JAX; it also holds the input builders that
@@ -366,3 +369,49 @@ def test_cuda_k4_dense_buckets_equals_plain(cuda):
     want, want_mm = T3._dense_buckets_plain(k_t, p_t, J)
     assert int(mm) == int(want_mm) == J + 1
     assert torch.equal(dense, want)
+
+
+@pytest.mark.cuda
+def test_cuda_blinded_width_commit_msm3_equals_msm2(cuda):
+    """A blinded-width commit, m = 2^18 + 3 on Setup.generate(2^18 + 3):
+    msm3 (K3, K4, K5 over 2^18 + 3-wide tables) equals the card's own msm2
+    route and the oracle p(tau) * G."""
+    from plonkathon_tpu_torch import Setup
+    from plonkathon_tpu_torch.fields import FR_MOD
+    from plonkathon_tpu_torch.ops.curve import jac_to_affine_host
+
+    m, tau = (1 << 18) + 3, 0xDEADBEEF1337
+    setup = Setup.generate(m, tau=tau, device=cuda)
+    rng = np.random.default_rng(42)
+    coeffs = [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(m)]
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * tau + c) % FR_MOD
+    dev = to_device(fr.to_mont_host_many(coeffs), cuda)
+    eng = setup.msm_engine
+    cuda_lib.reset_launches()
+    res3, maxmult = eng.msm_mont_deferred(dev)
+    assert int(maxmult) <= T3._J and cuda_lib.LAUNCHES["K3"] == 1
+    assert eng._tab16_n == m
+    res2 = eng._msm2_stacked(dev)
+    assert cuda_lib.LAUNCHES["K6"] == 1
+    got3, got2 = (jac_to_affine_host(r.reshape(3, 16)) for r in (res3, res2))
+    assert got3 == got2 == pt_mul(G1, acc)
+
+
+@pytest.mark.cuda
+def test_cuda_plookup_equals_cpu(cuda):
+    """The standalone plookup at n = 8 on the ceremony SRS: the card's
+    proof equals the CPU's (plookup has no randomness) and verifies."""
+    import os
+
+    from plonkathon_tpu_torch import Setup
+    from plonkathon_tpu_torch.lookup import prove_lookup, verify_lookup
+
+    ptau = os.path.join(os.path.dirname(__file__), "fixtures", "powersOfTau28_hez_final_11.ptau")
+    table, witness = [1, 5, 7, 11, 13, 17, 19, 23], [5, 13, 1, 5, 23, 7, 7]
+    card = Setup.from_file(ptau, device=cuda)
+    got = prove_lookup(card, table, witness)
+    want = prove_lookup(Setup.from_file(ptau, device="cpu"), table, witness)
+    assert got == want
+    assert verify_lookup(card, table, got)
