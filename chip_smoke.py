@@ -25,7 +25,7 @@ Phases, each printing its lines:
      for field, the three snarkjs vkeys and the golden commitment, verify;
   5. a mul-chain proof at n = 2^11 on the ceremony SRS, verified (commits
      through msm2, NTTs through the Stockham transform);
-  6. a mul-chain proof at n = 2^16 on Setup.generate(2^16), verified
+  6. a mul-chain proof at n = 2^14 on Setup.generate(2^14), verified
      (commits through msm3, NTTs through the four-step transform);
   7. the headline: a mul-chain proof at n = 2^18 on Setup.generate(2^18),
      verified, with per-round times, wall time, peak device memory and a
@@ -60,18 +60,30 @@ Phases, each printing its lines:
  11. the standalone plookup (lookup.py): (a) the JAX tests' TABLE at
      n = 8 on the ceremony SRS, card against CPU field for field,
      verify_lookup accepting it and rejecting evals['f'] + 1; (b) the
-     16-bit range table at n = 2^16 with seeded witness values on phase
-     7's SRS: prove and verify walls, the host Horner and synthetic
-     division (profiler ranges), the q commit's route (m = 3n);
+     range table of 2^14 entries at n = 2^14 with seeded witness values
+     on phase 7's SRS: prove and verify walls, the host Horner and
+     synthetic division (profiler ranges), the q commit's route (m = 3n);
  12. BatchProver (parallel/batch.py): (a) the fixture circuit, B = 2:
      proof 0 is proof.pickle, proof 1 the single proof of its witness;
      (b) B = 4 mul-chain witnesses at n = 2^18 on phase 7's setup, each
      proof equal to its single proof, the batch's K2 launches no more
      than one single warm proof's, its wall against 4 single proofs and
-     its peak memory.
+     its peak memory;
+ 13. length-sharded proving on torch.distributed (parallel/sharded.py):
+     (a) over NCCL, one rank per visible GPU (this process rank 0, a TCP
+     store on the loopback), the mul-chain on phase 7's setup through
+     Prover(config=ProverConfig(mesh=make_mesh())): cold and warm proofs
+     equal to phase 7's single-device proof, verified, the collectives
+     counted, Prover(), walls, rounds, peak and the twiddle tables' build;
+     (b) two spawned ranks sharing the card over Gloo (host-staged
+     exchange): the chain at n = 2^16 against a single-device proof on
+     the card, turbo + lookup at n = 16 against its single proof, and
+     BatchProver(mesh=...) on the fixture (proof 0 is proof.pickle), the
+     launch counts gathered from both ranks.
 Each phase drives its path with the launch counts set to 0 just before and
 read just after, prints its counts, and fails unless every kernel of ITS
 path (REQUIRED below) was launched in it.
+Lines "[t] phases ... done at X s" mark the wall clock between phases.
 Then the total wall, nvidia-smi's name and power limit once more, one
 JSON line of per-kernel records, and as the LAST line
 {"ok": true, "device": {...}}.  Any failure exits non-zero without it.
@@ -110,11 +122,11 @@ OPS_JADD = (12, 4)    # K4, K5, K8a
 OPS_DOUBLE = (2, 5)   # K7, per doubling
 HEADLINE_N = 1 << 18
 TURBO_SMALL = (12, 16, 3)  # gates, group order, table bits: 3 lookup rows
-MID_N = 1 << 16
+MID_N = 1 << 14     # phase 6 (cut from 2^16 to keep the smoke within 6 minutes)
 CHAIN_N = 1 << 11
 BLIND_ROWS = 4     # phase 10's blinding rows
 BLIND_SEED = 20261017
-PLOOKUP_N = 1 << 16
+PLOOKUP_N = 1 << 14  # phase 11(b) (cut from 2^16, as MID_N)
 BATCH = 4          # phase 12's proofs per batch
 TAU = 0xDEADBEEF1337  # Setup.generate's known tau: the MSM oracle needs it
 
@@ -147,7 +159,7 @@ REQUIRED = {
                 "K8b", "K9"),
     "fixture": _SMALL_PATH,
     "chain-2^11": _SMALL_PATH,
-    "chain-2^16": _LARGE_PATH,
+    "chain-2^14": _LARGE_PATH,
     "chain-2^18": _LARGE_PATH,
     "msm3-oracle": ("K3", "K4", "K5"),
     "msm3-overflow": ("K3", "K4", "K5", "K6"),
@@ -162,14 +174,19 @@ REQUIRED = {
     "zk-small": _SMALL_PATH,
     "zk-chain-2^18": _LARGE_PATH,
     "zk-turbo-lookup-2^18": ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K7"),
-    # Phase 11: plookup at n = 8 (small path) and at n = 2^16 on phase 7's
+    # Phase 11: plookup at n = 8 (small path) and at n = 2^14 on phase 7's
     # engine, whose tables already cover 3n (no K7).
     "plookup-8": _SMALL_PATH,
-    "plookup-2^16": ("K1 fr", "K2", "K3", "K4", "K5"),
+    "plookup-2^14": ("K1 fr", "K2", "K3", "K4", "K5"),
     # Phase 12: BatchProver on the fixture (small path) and at n = 2^18 on
     # phase 7's engine (tables resident).
     "batch-8": _SMALL_PATH,
     "batch-2^18": ("K1 fr", "K2", "K3", "K4", "K5"),
+    # Phase 13: the length-sharded chain proof.  Each rank's commit engine
+    # builds msm3 tables over its slice of the SRS (K7) and commits n / D
+    # >= 8192 coefficients through msm3; every local NTT is a Stockham one.
+    "sharded-2^18": ("K1 fr", "K2", "K3", "K4", "K5", "K7"),
+    "sharded-2rank": ("K1 fr", "K2", "K3", "K4", "K5", "K7"),
 }
 
 
@@ -813,7 +830,7 @@ def launches_since_reset(torch, cuda_lib, phase: str) -> dict:
 def synthetic_phase(ptt, torch, cuda_lib, n: int, phase: str, tag: str, profiled: bool):
     """Setup.generate(n) -> mul-chain -> prove -> verify, then a warm proof
     with its per-round times; returns (setup, launches over the path, the
-    prover)."""
+    prover, the witness, the warm proof)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
@@ -827,7 +844,7 @@ def synthetic_phase(ptt, torch, cuda_lib, n: int, phase: str, tag: str, profiled
     peak = torch.cuda.max_memory_allocated()
     prover.timings = type(prover.timings)(prover.device)
     t0 = time.perf_counter()
-    prover.prove(dict(witness))
+    proof = prover.prove(dict(witness))
     warm = time.perf_counter() - t0
     rounds = {k: round(v * 1e3, 1) for k, v in prover.timings.sections.items()}
     print(f"{tag} mul-chain n = {n} on Setup.generate: verified; "
@@ -838,7 +855,7 @@ def synthetic_phase(ptt, torch, cuda_lib, n: int, phase: str, tag: str, profiled
     if profiled:
         breakdown = device_breakdown(torch, lambda: prover.prove(dict(witness)))
         print(f"{tag} profiled warm prove: {json.dumps(breakdown)}", flush=True)
-    return setup, launches, prover
+    return setup, launches, prover, witness, proof
 
 
 def msm_oracle_phase(torch, np, cuda_lib, setup, m: int):
@@ -1269,7 +1286,7 @@ def host_ranges(torch, fn, names) -> dict:
 
 
 def plookup_large_phase(ptt, torch, np, cuda_lib, setup, n: int):
-    """11(b): the 16-bit range table at n = 2^16 and n - 1 seeded witness
+    """11(b): the range table of n = PLOOKUP_N entries and n - 1 seeded witness
     values on `setup` (phase 7's 2^18 SRS: 3n powers for the quotient);
     returns the launches over the proof."""
     from plonkathon_tpu_torch.lookup import prove_lookup, verify_lookup
@@ -1284,7 +1301,7 @@ def plookup_large_phase(ptt, torch, np, cuda_lib, setup, n: int):
     t0 = time.perf_counter()
     proof = prove_lookup(setup, table, witness)
     t_prove = time.perf_counter() - t0
-    launches = launches_since_reset(torch, cuda_lib, "plookup-2^16")
+    launches = launches_since_reset(torch, cuda_lib, "plookup-2^14")
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     ok = verify_lookup(setup, table, proof)
@@ -1297,7 +1314,7 @@ def plookup_large_phase(ptt, torch, np, cuda_lib, setup, n: int):
     host = host_ranges(torch, lambda: prove_lookup(setup, table, witness), names)
     route = "msm3" if 3 * n >= FixedBaseMSM._MSM3_MIN else "msm2"
     fallback = "none" if launches["K6"] == 0 else f"{launches['K6']} K6 launches"
-    print(f"[11b] plookup n = {n}, table range(2**16), {n - 1} seeded witness values, on "
+    print(f"[11b] plookup n = {n}, table range({n}), {n - 1} seeded witness values, on "
           f"phase 7's SRS: verify_lookup accepts (and rejects evals['f'] + 1); prove "
           f"{t_prove:.3f} s, verify {t_verify:.3f} s; host Horner over 3n coefficients "
           f"{host[names[0]]:.1f} ms, host synthetic division {host[names[1]]:.1f} ms (a "
@@ -1383,6 +1400,266 @@ def batch_large_phase(ptt, torch, cuda_lib, prover, b: int):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: length-sharded proving on torch.distributed.
+# ---------------------------------------------------------------------------
+
+SHARDED_2RANK_N = 1 << 16  # 13(b)'s chain
+RANK_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    """A free loopback port for a process group's TCP store."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _join(ctx, what: str):
+    """Join spawned ranks (a rank's failure raises here) within the
+    phase's time limit."""
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            fail(f"{what}: ranks did not finish in {RANK_TIMEOUT_S} s")
+
+
+def _missing_kernels(phase: str, launches: dict) -> list:
+    return [k for k in REQUIRED[phase] if launches[k] == 0]
+
+
+def _nccl_helper(i: int, world: int, port: int, n: int):
+    """13(a)'s rank i + 1 on its own card: the same collectives as rank
+    0, in the same order (the cold sharded chain proof, the launch
+    gather, the warm proof), on its own Setup.generate(n)."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    import plonkathon_tpu_torch as ptt
+    from plonkathon_tpu_torch.config import ProverConfig
+    from plonkathon_tpu_torch.ops import cuda_lib
+    from plonkathon_tpu_torch.parallel.distributed import init_distributed
+    from plonkathon_tpu_torch.parallel.mesh import all_gather_object, make_mesh
+
+    os.environ["LOCAL_RANK"] = str(i + 1)
+    init_distributed(f"tcp://127.0.0.1:{port}", world, i + 1)
+    mesh = make_mesh()
+    setup = ptt.Setup.generate(n, tau=TAU)
+    program = ptt.Program(chain_lines(n), n)
+    witness = chain_witness(n, 3)
+    cuda_lib.reset_launches()
+    prover = ptt.Prover(setup, program, config=ProverConfig(mesh=mesh))
+    prover.prove(dict(witness))
+    all_gather_object(dict(cuda_lib.LAUNCHES), mesh, "shard")
+    prover.prove(dict(witness))
+    dist.destroy_process_group()
+
+
+def sharded_nccl_phase(ptt, torch, cuda_lib, setup, program, witness, want):
+    """13(a): the mul-chain on phase 7's setup proved length-sharded over
+    NCCL, one rank per visible GPU (this process is rank 0), through
+    Prover(config=ProverConfig(mesh=make_mesh())): equal to phase 7's
+    single-device proof `want` of the same witness, verified; Prover(),
+    cold and warm walls, rounds, peak, collectives, the twiddle matrices'
+    and permuted tables' build; returns the launches of Prover() and the
+    cold proof, summed over the ranks."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from plonkathon_tpu_torch.config import ProverConfig
+    from plonkathon_tpu_torch.parallel import sharded
+    from plonkathon_tpu_torch.parallel.distributed import init_distributed
+    from plonkathon_tpu_torch.parallel.mesh import all_gather_object, make_mesh
+
+    n = program.group_order
+    world = torch.cuda.device_count()
+    port = _free_port()
+    helpers = None
+    if world > 1:
+        helpers = mp.start_processes(_nccl_helper, args=(world, port, n), nprocs=world - 1,
+                                     join=False, start_method="spawn")
+    init_distributed(f"tcp://127.0.0.1:{port}", world, 0)
+    mesh = make_mesh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    prover = ptt.Prover(setup, program, config=ProverConfig(mesh=mesh))
+    t_init = time.perf_counter() - t0
+    if not prover._sharded:
+        fail(f"13(a): n = {n} over {world} ranks did not take the sharded path")
+    t0 = time.perf_counter()
+    proof = prover.prove(dict(witness))
+    cold = time.perf_counter() - t0
+    cold_rounds = {k: round(v * 1e3, 1) for k, v in prover.timings.sections.items()}
+    collectives = dict(cuda_lib.COLLECTIVES)
+    torch.cuda.synchronize()
+    per_rank = all_gather_object(dict(cuda_lib.LAUNCHES), mesh, "shard")
+    for r, launches in enumerate(per_rank):
+        missing = _missing_kernels("sharded-2^18", launches)
+        if missing:
+            fail(f"sharded-2^18: rank {r} never launched {missing}")
+    launches = {k: sum(l[k] for l in per_rank) for k in per_rank[0]}
+    if not collectives["all_to_all"] or not collectives["all_gather"]:
+        fail(f"13(a): the sharded proof issued collectives {collectives}")
+    peak = torch.cuda.max_memory_allocated()
+    prover.timings = type(prover.timings)(prover.device)
+    t0 = time.perf_counter()
+    warm_proof = prover.prove(dict(witness))
+    warm = time.perf_counter() - t0
+    rounds = {k: round(v * 1e3, 1) for k, v in prover.timings.sections.items()}
+    for name, got in (("cold", proof), ("warm", warm_proof)):
+        if got.flatten() != want.flatten():
+            fail(f"13(a): the {name} sharded proof differs from phase 7's single-device proof")
+    vk = setup.verification_key(prover.pk)
+    if not vk.verify_proof(n, proof, [witness["out"]]):
+        fail("13(a): the sharded proof does not verify")
+    # What the cold proof pays for the cached device tables.
+    n1, n2 = sharded._factor(n, world)
+    sharded._twiddle_matrix.cache_clear()
+    sharded._perm_tables.cache_clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rows, cols, inverse in ((n1, n2, True), (4 * n2, n1, False), (n1, 4 * n2, True)):
+        sharded._twiddles(mesh, "shard", rows, cols, inverse)
+    torch.cuda.synchronize()
+    t_tw = time.perf_counter() - t0
+    block = sharded._block(mesh, "shard", 4 * n2)
+    t0 = time.perf_counter()
+    sharded._perm_tables(n1, n2, (block.start, block.stop), mesh.device)
+    torch.cuda.synchronize()
+    t_perm = time.perf_counter() - t0
+    dist.destroy_process_group()
+    if helpers is not None:
+        _join(helpers, "13(a)")
+    print(f"[13a] sharded mul-chain n = {n} over NCCL, {world} rank(s), one per visible GPU "
+          f"(n1 = {n1}, n2 = {n2}): cold and warm proofs equal the single-device proof "
+          f"(phase 7's in the smoke) field for field, verified; Prover() {t_init:.2f} s, cold prove "
+          f"{cold:.3f} s (rank 0's msm3 tables over its {n // world} SRS points built in it; "
+          f"rounds ms {json.dumps(cold_rounds)}), warm prove {warm:.3f} s, warm rounds ms "
+          f"{json.dumps(rounds)}; twiddle matrices {t_tw * 1e3:.1f} ms, permuted coset tables "
+          f"{t_perm * 1e3:.1f} ms to build (cached after the cold proof); collectives per proof "
+          f"{json.dumps(collectives)}; rank 0's peak device memory {peak / 2**30:.2f} GiB (the "
+          f"single-device prover's setup and tables resident); launches of Prover() and the cold proof, all ranks "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
+
+
+def _gloo_rank(rank: int, world: int, port: int, out_path: str):
+    """13(b)'s rank on the one card over Gloo: the sharded mul-chain at
+    SHARDED_2RANK_N against a single-device proof, the turbo + lookup
+    circuit at n = 16 sharded against single, and BatchProver(mesh=...)
+    on the fixture with B = 2; rank 0 writes the results to out_path."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    import plonkathon_tpu_torch as ptt
+    from plonkathon_tpu_torch.config import ProverConfig
+    from plonkathon_tpu_torch.models.examples import turbo_lookup_program, turbo_lookup_witness
+    from plonkathon_tpu_torch.ops import cuda_lib
+    from plonkathon_tpu_torch.parallel.batch import BatchProver
+    from plonkathon_tpu_torch.parallel.distributed import init_distributed
+    from plonkathon_tpu_torch.parallel.mesh import all_gather_object, make_mesh
+
+    init_distributed(f"tcp://127.0.0.1:{port}", world, rank, backend="gloo")
+    mesh = make_mesh()
+    cuda_lib.build()  # both ranks at once: one build (the lock), here already built
+    n = SHARDED_2RANK_N
+    t0 = time.perf_counter()
+    setup = ptt.Setup.generate(n, tau=TAU)
+    program = ptt.Program(chain_lines(n), n)
+    witness = chain_witness(n, 3)
+    t_setup = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    prover = ptt.Prover(setup, program, config=ProverConfig(mesh=mesh))
+    proof = prover.prove(dict(witness))
+    torch.cuda.synchronize()
+    t_sharded = time.perf_counter() - t0
+    mine = (dict(cuda_lib.LAUNCHES), dict(cuda_lib.COLLECTIVES))
+    t0 = time.perf_counter()
+    prover.prove(dict(witness))
+    t_warm = time.perf_counter() - t0
+    counts = all_gather_object(mine, mesh, "shard")
+    # The single-device proof on the card (rank 0) while rank 1 verifies.
+    if rank == 0:
+        same = proof.flatten() == ptt.Prover(setup, program).prove(dict(witness)).flatten()
+    else:
+        vk = setup.verification_key(program.common_preprocessed_input())
+        same = vk.verify_proof(n, proof, [witness["out"]])
+    chain_ok = all_gather_object(same, mesh, "shard")
+
+    small = ptt.Setup.from_file(PTAU)
+    tprog = turbo_lookup_program(*TURBO_SMALL[:2], table_bits=TURBO_SMALL[2])
+    tw = turbo_lookup_witness(tprog)
+    tproof = ptt.Prover(small, tprog, config=ProverConfig(mesh=mesh)).prove(dict(tw))
+    turbo_ok = tproof.flatten() == ptt.Prover(small, tprog).prove(dict(tw)).flatten()
+
+    fixture = ptt.Program(["e public", "c <== a * b", "e <== c * d"], 8)
+    witnesses = [{"a": 3, "b": 4, "c": 12, "d": 5, "e": 60},
+                 {"a": 2, "b": 5, "c": 10, "d": 7, "e": 70}]
+    proofs = BatchProver(small, fixture, mesh=mesh).prove_batch([dict(w) for w in witnesses])
+    pickle_ok = proofs[0].flatten() == ptt.load_proof_pickle(
+        os.path.join(FIXTURES, "proof.pickle")).flatten()
+    single1 = ptt.Prover(small, fixture).prove(dict(witnesses[1])).flatten()
+    batch_ok = pickle_ok and proofs[1].flatten() == single1
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump({"setup_s": t_setup, "sharded_cold_s": t_sharded, "sharded_warm_s": t_warm,
+                       "launches": [c[0] for c in counts], "collectives": [c[1] for c in counts],
+                       "chain_equal_single": chain_ok[0], "chain_verified": chain_ok[1],
+                       "turbo_equal_single": turbo_ok, "batch_ok": batch_ok}, f)
+    dist.destroy_process_group()
+
+
+def sharded_gloo_phase(torch):
+    """13(b): two ranks sharing the one card over Gloo (every collective
+    stages its CUDA tensor through the host); returns the launches of the
+    sharded chain proofs, summed over the ranks."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "13b.json")
+        ctx = mp.start_processes(_gloo_rank, args=(2, _free_port(), out_path), nprocs=2,
+                                 join=False, start_method="spawn")
+        _join(ctx, "13(b)")
+        with open(out_path) as f:
+            res = json.load(f)
+    wall = time.perf_counter() - t0
+    for r, launches in enumerate(res["launches"]):
+        missing = _missing_kernels("sharded-2rank", launches)
+        if missing:
+            fail(f"sharded-2rank: rank {r} never launched {missing}")
+    if not all(c["all_to_all"] and c["all_gather"] for c in res["collectives"]):
+        fail(f"13(b): the sharded proofs issued collectives {res['collectives']}")
+    for key, what in (("chain_equal_single", "the sharded chain proof differs from the single one"),
+                      ("chain_verified", "the sharded chain proof does not verify"),
+                      ("turbo_equal_single", "the sharded turbo + lookup proof differs from single"),
+                      ("batch_ok", "BatchProver(mesh=...) proofs differ from proof.pickle / single")):
+        if not res[key]:
+            fail(f"13(b): {what}")
+    launches = {k: sum(l[k] for l in res["launches"]) for k in res["launches"][0]}
+    print(f"[13b] two ranks sharing cuda:0 over Gloo (host-staged exchange: each collective "
+          f"copies its CUDA tensor to the host and back): the sharded mul-chain at n = "
+          f"{SHARDED_2RANK_N} equals the single-device proof made on the card, verified; the "
+          f"turbo + lookup circuit at n = {TURBO_SMALL[1]} sharded equals its single proof; "
+          f"BatchProver(mesh=...), B = 2 on the fixture: proof 0 is proof.pickle, proof 1 the "
+          f"single proof; per rank: Setup.generate + Program {res['setup_s']:.2f} s, Prover() + "
+          f"cold sharded prove {res['sharded_cold_s']:.3f} s, warm {res['sharded_warm_s']:.3f} s, "
+          f"collectives {json.dumps(res['collectives'][0])}, launches {json.dumps(res['launches'])};"
+          f" phase wall {wall:.1f} s", flush=True)
+    return launches
+
+
 def main():
     try:
         import numpy as np
@@ -1422,6 +1699,11 @@ def main():
     launches = launches_since_reset(torch, cuda_lib, "kernels")
     print(f"[3] launches of the comparisons {json.dumps(launches)}", flush=True)
 
+    def mark(phases: str):
+        print(f"[t] phases {phases} done at {time.perf_counter() - T_START:.1f} s", flush=True)
+
+    mark("1-3")
+
     # 4. fixture proof, vkeys, golden commitment
     cuda_lib.reset_launches()
     fixture_phase(ptt)
@@ -1439,40 +1721,56 @@ def main():
           f"cold prove {wall11:.3f} s, launches {json.dumps(launches)}", flush=True)
     del setup11
 
-    # 6. mul-chain at n = 2^16 on a synthetic SRS (msm3 + four-step)
-    synthetic_phase(ptt, torch, cuda_lib, MID_N, "chain-2^16", "[6]", profiled=False)
+    # 6. mul-chain at n = 2^14 on a synthetic SRS (msm3 + four-step)
+    synthetic_phase(ptt, torch, cuda_lib, MID_N, "chain-2^14", "[6]", profiled=False)
     torch.cuda.empty_cache()
 
     # 7. headline: mul-chain at n = 2^18 on a synthetic SRS
-    setup, launches, chain_prover = synthetic_phase(
+    setup, launches, chain_prover, chain_witness7, chain_proof7 = synthetic_phase(
         ptt, torch, cuda_lib, HEADLINE_N, "chain-2^18", "[7]", profiled=True
     )
 
+    mark("4-7")
+
     # 8. msm3 against the exact oracle, on the headline setup's engine
     msm_oracle_phase(torch, np, cuda_lib, setup, HEADLINE_N)
+    mark("8")
 
     # 9. TurboPlonK cube gates + PlonKup lookups: card against CPU, then
     # n = 2^18 on the headline setup
     turbo_small_phase(ptt)
+    mark("9a")
     turbo_launches = turbo_large_phase(ptt, torch, cuda_lib, setup, HEADLINE_N)
     torch.cuda.empty_cache()
 
     # 10. ZK blinding: card against CPU under one blinder stream, then the
     # blinded chain and turbo + lookup circuits at n = 2^18 on an n + 3 SRS
+    mark("9b")
     zk_small_phase(ptt, torch, cuda_lib)
+    mark("10a")
     zk_setup, zk_chain_launches = zk_chain_phase(ptt, torch, cuda_lib, HEADLINE_N)
     zk_turbo_launches = zk_turbo_phase(ptt, torch, cuda_lib, zk_setup, HEADLINE_N)
     del zk_setup
     torch.cuda.empty_cache()
 
-    # 11. the standalone plookup: card against CPU at n = 8, then n = 2^16
+    # 11. the standalone plookup: card against CPU at n = 8, then n = 2^14
     # on the headline setup
+    mark("10b-10c")
     plookup_small_phase(ptt, torch, cuda_lib)
+    mark("11a")
     plookup_launches = plookup_large_phase(ptt, torch, np, cuda_lib, setup, PLOOKUP_N)
 
     # 12. BatchProver: the fixture, then B chain proofs at n = 2^18
     batch_small_phase(ptt, torch, cuda_lib)
     batch_launches = batch_large_phase(ptt, torch, cuda_lib, chain_prover, BATCH)
+    mark("11b-12")
+
+    # 13. length-sharded proving: the chain at n = 2^18 over NCCL, one rank
+    # per visible GPU, then two ranks sharing the card over Gloo
+    sharded_launches = sharded_nccl_phase(ptt, torch, cuda_lib, setup, chain_prover.program,
+                                          chain_witness7, chain_proof7)
+    mark("13a")
+    sharded2_launches = sharded_gloo_phase(torch)
 
     for r in records:
         k = r["kernel"]
@@ -1482,6 +1780,8 @@ def main():
         r["launches_zk_turbo_lookup"] = zk_turbo_launches[k]
         r["launches_plookup"] = plookup_launches[k]
         r["launches_batch"] = batch_launches[k]
+        r["launches_sharded"] = sharded_launches[k]
+        r["launches_sharded_2rank"] = sharded2_launches[k]
     print(f"chip_smoke: total wall {time.perf_counter() - T_START:.1f} s", flush=True)
     print(smi, flush=True)  # again, where a tail of the output keeps it
     print(json.dumps({"kernels": records}), flush=True)

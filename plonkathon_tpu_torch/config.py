@@ -18,10 +18,20 @@ class ProverConfig:
     debug_checks: bool = False
     # Record per-round wall-clock timings into Prover.timings.
     profile: bool = False
-    # Device mesh for length-sharded proving (round 3's NTT/quotient chain
-    # runs across all mesh devices).  None = single device.
+    # Device mesh for length-sharded proving (parallel/mesh.py's Mesh: every
+    # NTT, the grand product, the openings and the commits of a proof run
+    # across the ranks of its `mesh_axis`).  None = single device.
     mesh: object = None
     mesh_axis: str = "shard"
+
+    def __post_init__(self):
+        from .parallel.mesh import Mesh
+
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(
+                f"ProverConfig.mesh takes a plonkathon_tpu_torch.parallel.mesh.Mesh, "
+                f"not {type(self.mesh).__name__}"
+            )
 
 
 @dataclass(frozen=True)

@@ -248,6 +248,7 @@ class Program:
         self.lookup_table = (
             None if lookup_table is None else [x % FR_MOD for x in lookup_table]
         )
+        self._preprocessed = None
         if self.has_lookups:
             if self.lookup_table is None:
                 raise ValueError("lookup rows require a lookup_table")
@@ -391,14 +392,20 @@ class Program:
         )
 
     def common_preprocessed_input(self) -> CommonPreprocessedInput:
-        ql, qr, qm, qo, qc = self.make_gate_polynomials()
-        s1, s2, s3 = self.make_s_polynomials()
-        qk, tbl, t_last = self.make_lookup_polynomials()
-        return CommonPreprocessedInput(
-            self.group_order, qm, ql, qr, qo, qc, s1, s2, s3,
-            QCUBE=self.make_qcube_polynomial(),
-            QK=qk, TBL=tbl, t_last=t_last,
-        )
+        """The circuit's selectors, permutation and lookup columns, built at
+        the first call and kept: a Program does not change once built, and
+        every Prover, BatchProver and verification key of it asks for them
+        (seconds of host work at n = 2^18)."""
+        if self._preprocessed is None:
+            ql, qr, qm, qo, qc = self.make_gate_polynomials()
+            s1, s2, s3 = self.make_s_polynomials()
+            qk, tbl, t_last = self.make_lookup_polynomials()
+            self._preprocessed = CommonPreprocessedInput(
+                self.group_order, qm, ql, qr, qo, qc, s1, s2, s3,
+                QCUBE=self.make_qcube_polynomial(),
+                QK=qk, TBL=tbl, t_last=t_last,
+            )
+        return self._preprocessed
 
     # -- witness generation ----------------------------------------------
     def fill_variable_assignments(self, starting: dict) -> dict:

@@ -7,7 +7,9 @@ directory under a name keyed by a hash of every source and header plus the
 flags, so an edited kernel is never served from a stale build; nvcc's output
 (the ptxas register and spill report) is kept beside it.  Nothing is built
 when a module is imported: the first launch builds, or `build()` does it up
-front.
+front.  The check for a finished library and the nvcc call hold an
+exclusive lock on `_build/nvcc.lock`, so processes that launch first at the
+same time (the ranks of a sharded proof) run one build and load its file.
 
 Every C entry point returns `cudaGetLastError()` right after its launch;
 `check()` raises on anything but 0.
@@ -16,6 +18,7 @@ Every C entry point returns `cudaGetLastError()` right after its launch;
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -65,13 +68,20 @@ LAUNCHES = {
 }
 
 
+# Collectives this process issued (parallel/mesh.py), counted beside the
+# launches: a sharded proof that issued none did not take the sharded path.
+COLLECTIVES = {"all_to_all": 0, "all_gather": 0}
+
+
 def count_launch(kernel: str) -> None:
     LAUNCHES[kernel] += 1
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Set the launch and the collective counts to 0."""
+    for counts in (LAUNCHES, COLLECTIVES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -89,18 +99,20 @@ def _lib_path() -> str:
     return os.path.join(BUILD_DIR, f"kernels_{h.hexdigest()[:16]}.so")
 
 
-def build() -> ctypes.CDLL:
-    """Compile the sources (once per hash) and load the library.
+def _compile() -> str:
+    """The library's path, compiled first unless a finished build is there.
 
-    Raises RuntimeError with nvcc's output if the compile fails."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        out = _lib_path()
+    An exclusive lock on `_build/nvcc.lock` covers the check and the nvcc
+    call: a process that waits on it finds the library its holder built.
+    nvcc writes to a temporary name that `os.replace` moves into place, so
+    no reader ever sees half a file.  Raises RuntimeError with nvcc's
+    output if the compile fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = _lib_path()
+    with open(os.path.join(BUILD_DIR, "nvcc.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         if not os.path.exists(out):
-            tmp = f"{out}.{os.getpid()}.tmp"  # concurrent builders never see half a file
+            tmp = f"{out}.{os.getpid()}.tmp"
             proc = subprocess.run(
                 [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, s) for s in SOURCES)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -110,7 +122,17 @@ def build() -> ctypes.CDLL:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed:\n{proc.stdout[-8000:]}")
             os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
+    return out
+
+
+def build() -> ctypes.CDLL:
+    """Compile the sources (once per hash, across processes) and load the
+    library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(_compile())
         for name, argtypes in SIGNATURES.items():
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = ctypes.c_int

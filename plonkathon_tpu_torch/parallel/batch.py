@@ -11,8 +11,15 @@ proof on the host.  Each proof equals, field for field, what
 `Prover.prove` gives for its witness.
 
 Not covered, as in the JAX package: ZK blinding rows and PlonKup lookups
-(ValueError).  A device mesh (the JAX package shards the batch axis over
-one) arrives with torch.distributed, ROADMAP Queue 1, item 6.
+(ValueError).
+
+With a mesh (parallel/mesh.py), the batch axis is sharded over the mesh
+axis as the JAX package shards it: each rank proves a contiguous block of
+B / D witnesses with the single-device rounds on its own device (no
+exchange between proofs), and the proofs are all-gathered, so every rank
+returns all B, in order.  B must be a multiple of D: the JAX package's
+`device_put` of a batch of 3 onto 8 devices raises ValueError, and so does
+this.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from __future__ import annotations
 from ..frontend import Program
 from ..kzg import Setup
 from ..prover import Proof, Prover
+from .mesh import Mesh, all_gather_object
 
 
 class BatchProver:
@@ -42,11 +50,12 @@ class BatchProver:
                 "BatchProver does not implement PlonKup lookups; use Prover "
                 "for circuits with lookup rows"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a batch sharded over a device mesh (axis {axis!r}) arrives with "
-                "torch.distributed (ROADMAP Queue 1, item 6)"
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                f"BatchProver's mesh takes a plonkathon_tpu_torch.parallel.mesh.Mesh, "
+                f"not {type(mesh).__name__}"
             )
+        self.mesh, self.axis = mesh, axis
         self.setup = setup
         self.program = program
         self.group_order = program.group_order
@@ -54,4 +63,15 @@ class BatchProver:
         self.pk = self._prover.pk
 
     def prove_batch(self, witnesses: list[dict]) -> list[Proof]:
-        return self._prover._prove_batch(witnesses)
+        if self.mesh is None:
+            return self._prover._prove_batch(witnesses)
+        d = self.mesh.shape[self.axis]
+        if len(witnesses) % d:
+            raise ValueError(
+                f"a batch of {len(witnesses)} does not shard over {d} ranks: B must be "
+                f"a multiple of the mesh axis {self.axis!r}"
+            )
+        block = len(witnesses) // d
+        start = self.mesh.index(self.axis) * block
+        mine = self._prover._prove_batch(witnesses[start : start + block])
+        return [p for proofs in all_gather_object(mine, self.mesh, self.axis) for p in proofs]

@@ -23,9 +23,13 @@ blinding (`Program(blinding_rows=t)`): the wires' last t rows take fresh
 random values, and Z (with lookups also f, h1, h2 and Z2) gains a
 Z_H-multiple r(X) * (X^n - 1) with fresh coefficients, so those commits
 are n + 2 or n + 3 coefficients wide and need an SRS of n + 3 powers.
-Blinders come from `secrets.randbelow`, in the JAX package's order.  The
-mesh-sharded rounds (ROADMAP Queue 1, item 6) raise NotImplementedError
-naming that item; B proofs of one circuit at once are parallel/batch.py's.
+Blinders come from `secrets.randbelow`, in the JAX package's order.  With
+`ProverConfig(mesh=...)` (parallel/mesh.py) every NTT, the grand product,
+the quotient, the openings and the commits of a proof run length-sharded
+across the mesh's ranks (parallel/sharded.py), each rank running `prove`
+on its own device; as in the JAX package, a ZK-blinded circuit and a group
+order that `_factor` cannot split take the single-device rounds.  B proofs
+of one circuit at once are parallel/batch.py's.
 
 The round algebra (`_perm_grand_product`, `_prefix_product`,
 `_quotient_impl`, `_linearization_impl`, `_coset_lift`, `_coset_x_impl`)
@@ -312,7 +316,12 @@ def _barycentric_batch(values, xs, n: int):
     roots = _ntt._roots_impl(n, False, values.device)
     denom = fr.sub(xs[:, :, None], roots[:, None, :])
     terms = fr.mul(fr.mul(values, roots[:, None, :]), fr.batch_inv(denom))
-    total = _ntt._treesum(terms)
+    return _barycentric_finish(_ntt._treesum(terms), xs, n)
+
+
+def _barycentric_finish(total, xs, n: int):
+    """The barycentric sum of terms v_i w^i / (x - w^i), [16, B], times
+    (x^n - 1) / n: the evaluations at xs [16, B]."""
     xn = fr.pow_int(xs, n)
     scale = fr.mul(
         fr.sub(xn, fr.const("ONE_MONT", xs.device, 2)),
@@ -465,11 +474,9 @@ class Prover:
                 f"program on {program.device}"
             )
         self.config = config or ProverConfig(debug_checks=debug)
-        if self.config.mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded proving arrives with torch.distributed "
-                "(ROADMAP Queue 1, item 6)"
-            )
+        mesh = self.config.mesh
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"Prover on {self.device}: its mesh computes on {mesh.device}")
         self.group_order = program.group_order
         self.setup = setup
         self.program = program
@@ -479,6 +486,8 @@ class Prover:
         self._custom = program.has_custom_gates
         self._lookup = program.has_lookups
         self._blind = program.blinding_rows > 0
+        self._sharded = mesh is not None and self._mesh_shardable()
+        self._mesh_msm = None
         if self._blind:
             # Z (and with lookups h1, h2, Z2) gains a Z_H-multiple of degree
             # n + 2, so those commits and the openings need 3 more powers.
@@ -525,6 +534,45 @@ class Prover:
                 if c.coeffs.get("$lookup")
             ]
 
+    def _mesh_shardable(self) -> bool:
+        """The mesh rounds need n = n1 * n2 with n1 and n2 divisible by the
+        axis size.  Cube-gate and lookup circuits shard like vanilla ones
+        (the extra rows ride the same chain); ZK-blinded circuits take the
+        single-device rounds, as in the JAX package (the sharded chain does
+        not carry the Z_H-multiple coefficient deltas)."""
+        from .parallel.sharded import _factor
+
+        if self._blind:
+            return False
+        try:
+            _factor(self.group_order, self.config.mesh.shape[self.config.mesh_axis])
+        except ValueError:
+            return False
+        return True
+
+    @property
+    def _commit_engine(self):
+        """The mesh-sharded commit engine in mesh mode, the setup's
+        single-device engine otherwise."""
+        if not self._sharded:
+            return self.setup.msm_engine
+        if self._mesh_msm is None:
+            from .parallel.sharded import MeshMSM
+
+            self._mesh_msm = MeshMSM(
+                self.setup.powers_of_x, self.group_order, self.config.mesh, self.config.mesh_axis
+            )
+        return self._mesh_msm
+
+    def _intt(self, stack) -> torch.Tensor:
+        """Lagrange stack [16, B, k, n] -> monomial coefficients; in mesh
+        mode (B = 1) length-sharded across the mesh."""
+        if not self._sharded:
+            return _ntt.ntt(stack, inverse=True)
+        from .parallel.sharded import sharded_intt
+
+        return sharded_intt(self.config.mesh, self.config.mesh_axis, stack[:, 0])[:, None]
+
     def _col(self, values) -> torch.Tensor:
         """Per-proof host scalars -> [16, B] Montgomery limbs on the
         prover's device."""
@@ -538,7 +586,7 @@ class Prover:
         """Per-proof lists of monomial coefficient rows [16, m] -> per-proof
         lists of host affine points: every commit of the round in one
         commit_batch, one host fetch."""
-        points = self.setup.msm_engine.commit_batch([p for row in polys for p in row])
+        points = self._commit_engine.commit_batch([p for row in polys for p in row])
         k = len(polys[0])
         return [points[i * k : (i + 1) * k] for i in range(len(polys))]
 
@@ -567,6 +615,11 @@ class Prover:
         polynomials in one commit_batch; each proof keeps its own
         Fiat-Shamir transcript on the host, so proof i is the one `prove`
         gives for witness i."""
+        if self._sharded and len(witnesses) != 1:
+            raise ValueError(
+                "a length-sharded Prover proves one witness at a time; "
+                "BatchProver(mesh=...) shards a batch"
+            )
         transcripts = [Transcript(b"plonk") for _ in witnesses]
         # Like the reference, pk and PI are not absorbed — required for
         # bit-identical challenge streams.
@@ -596,7 +649,7 @@ class Prover:
         with self.timings.section("round_5"):
             msg_5 = self.round_5()
         # Round 3's coset stack is the largest tensor of a proof: free it.
-        self._bigs = self._xvals = self._t_coeffs = None
+        self._bigs = self._xvals = self._t_coeffs = self._r3 = None
         return [Proof(*msgs) for msgs in zip(msg_1, msg_2, msg_3, msg_4, msg_5)]
 
     # -- round 1: wire polynomials ---------------------------------------
@@ -646,7 +699,7 @@ class Prover:
             raw = np.concatenate([raw, lk], axis=2)
         cols = fr.to_mont(to_device(raw, self.device))  # [16, B, 3 (+3), n]
         self.A, self.B, self.C = (cols[:, :, i, :] for i in range(3))
-        polys = self._rows(_ntt.ntt(cols, inverse=True))
+        polys = self._rows(self._intt(cols))
         if self._lookup:
             self.F, self.H1, self.H2 = (cols[:, :, i, :] for i in range(3, 6))
             if self._blind:
@@ -689,11 +742,21 @@ class Prover:
     # -- round 2: permutation grand product ------------------------------
     def round_2(self) -> list[Message2]:
         n = self.group_order
-        s1, s2, s3 = (self._sigma_stack[:, None, k, :] for k in range(3))
-        z, z_last = _perm_grand_product(
-            self.A, self.B, self.C, s1, s2, s3, _ntt._roots_impl(n, False, self.device)[:, None, :],
-            self._col(self.beta), self._col(self.gamma),
-        )
+        beta, gamma = self._col(self.beta), self._col(self.gamma)
+        if self._sharded:
+            from .parallel.sharded import sharded_round2
+
+            stack = torch.cat([torch.stack([self.A, self.B, self.C], dim=2)[:, 0], self._sigma_stack], dim=1)
+            z, z_last = sharded_round2(
+                self.config.mesh, self.config.mesh_axis, stack, beta[:, 0], gamma[:, 0]
+            )
+            z, z_last = z[:, None], z_last[:, None]
+        else:
+            s1, s2, s3 = (self._sigma_stack[:, None, k, :] for k in range(3))
+            z, z_last = _perm_grand_product(
+                self.A, self.B, self.C, s1, s2, s3,
+                _ntt._roots_impl(n, False, self.device)[:, None, :], beta, gamma,
+            )
         if self.debug:
             assert set(fr.from_mont_host_many(z_last)) == {1}, "grand product does not close"
         self.Z = z
@@ -709,7 +772,7 @@ class Prover:
                 )
             self.Z2 = z2
             rows.append(z2)
-        polys = self._rows(_ntt.ntt(torch.stack(rows, dim=2), inverse=True))
+        polys = self._rows(self._intt(torch.stack(rows, dim=2)))
         if self._blind:
             # Z' = Z + r(X) Z_H(X) with r of degree 2 equals Z on the domain,
             # but hides the commitment and the zeta * omega opening: random
@@ -792,6 +855,33 @@ class Prover:
         if self._lookup:
             rows.append(self._lookup_stack())
         polys = torch.cat(rows, dim=2)  # [16, B, 15 (+1) (+11), n]
+        if self._sharded:
+            quot, qcoeffs = self._round_3_sharded(polys)
+        else:
+            quot, qcoeffs = self._round_3_single(polys)
+        # T stays in coefficient form: round 5 lifts it to the coset again.
+        self._t_coeffs = qcoeffs[..., : 3 * n].reshape(NLIMBS, nb, 3, n)
+
+        if self.debug:
+            t_lag = _ntt.ntt(self._t_coeffs)  # [16, B, 3, n]
+            for i, off in enumerate(offs):
+                tail = fr.from_mont_host_many(qcoeffs[:, i, 3 * n :])
+                assert tail == [0] * n, "quotient degree >= 3n"
+                t1, t2, t3 = (Polynomial(t_lag[:, i, k, :], Basis.LAGRANGE) for k in range(3))
+                lhs = (
+                    t1.barycentric_eval(off)
+                    + t2.barycentric_eval(off) * off**n
+                    + t3.barycentric_eval(off) * off ** (n * 2)
+                )
+                assert lhs == Fr(fr.from_mont_host(quot[:, i, 0])), "T split mismatch"
+
+        return [Message3(*p) for p in self._commits(self._rows(self._t_coeffs))]
+
+    def _round_3_single(self, polys):
+        """Round 3's coset chain on this device: (QUOT on the 4n coset,
+        its coefficients), each [16, B, 4n]; keeps the coset stack and X
+        values for round 5."""
+        n, offs = self.group_order, self.fft_cofactor
         offset = self._col(offs)
         coeffs = _ntt.ntt(polys, inverse=True)
         del polys
@@ -809,26 +899,30 @@ class Prover:
             self._col(self.beta), self._col(self.gamma), self._col(self.alpha),
             qcube=self._coset_qcube(bigs), lookup=self._coset_lookup(bigs),
         )
-        qcoeffs = _ntt.coset_to_coeffs(quot, self._col([Fr(1) / o for o in offs]))  # [16, B, 4n]
-        # T stays in coefficient form: round 5 lifts it to the coset again.
-        self._t_coeffs = qcoeffs[..., : 3 * n].reshape(NLIMBS, nb, 3, n)
         self._bigs = bigs
         self._xvals = xvals
+        return quot, _ntt.coset_to_coeffs(quot, self._col([Fr(1) / o for o in offs]))
 
-        if self.debug:
-            t_lag = _ntt.ntt(self._t_coeffs)  # [16, B, 3, n]
-            for i, off in enumerate(offs):
-                tail = fr.from_mont_host_many(qcoeffs[:, i, 3 * n :])
-                assert tail == [0] * n, "quotient degree >= 3n"
-                t1, t2, t3 = (Polynomial(t_lag[:, i, k, :], Basis.LAGRANGE) for k in range(3))
-                lhs = (
-                    t1.barycentric_eval(off)
-                    + t2.barycentric_eval(off) * off**n
-                    + t3.barycentric_eval(off) * off ** (n * 2)
-                )
-                assert lhs == Fr(fr.from_mont_host(quot[:, i, 0])), "T split mismatch"
+    def _round_3_sharded(self, polys):
+        """Round 3's coset chain length-sharded over the mesh (B = 1):
+        (QUOT, read only by the debug checks, else None; its coefficients
+        [16, 1, 4n]).  Keeps the sharded output, whose permuted blocks
+        round 5 consumes."""
+        from .parallel.sharded import sharded_round3
 
-        return [Message3(*p) for p in self._commits(self._rows(self._t_coeffs))]
+        lookup_scalars = None
+        if self._lookup:
+            lookup_scalars = (
+                self._col(self.delta)[:, 0], self._col(self.epsilon)[:, 0],
+                fr.scalar(self._t_last, self.device),
+            )
+        self._r3 = sharded_round3(
+            self.config.mesh, self.config.mesh_axis, polys[:, 0],
+            self._col(self.beta)[:, 0], self._col(self.gamma)[:, 0], self._col(self.alpha)[:, 0],
+            self.fft_cofactor[0], custom=self._custom, lookup_scalars=lookup_scalars,
+        )
+        quot = self._r3.quot[:, None] if self.debug else None
+        return quot, self._r3.qcoeffs[:, None]
 
     def _coset_qcube(self, bigs):
         """The QCUBE row of round 3's coset stack, or None."""
@@ -865,9 +959,14 @@ class Prover:
             shifted += [False, False, True, False, True, False, True, True]
         k = len(rows)
         points = self._col([zt * root if s else zt for zt in self.zeta for s in shifted])
-        evs = fr.from_mont_host_many(
-            _barycentric_batch(torch.stack(rows, dim=2).reshape(NLIMBS, nb * k, n), points, n)
-        )
+        values = torch.stack(rows, dim=2).reshape(NLIMBS, nb * k, n)
+        if self._sharded:
+            from .parallel.sharded import sharded_round4
+
+            evs = sharded_round4(self.config.mesh, self.config.mesh_axis, values, points)
+        else:
+            evs = _barycentric_batch(values, points, n)
+        evs = fr.from_mont_host_many(evs)
         self.evals = [[Fr(v) for v in evs[i * k : (i + 1) * k]] for i in range(nb)]
         if self._blind:
             for i in range(nb):
@@ -904,10 +1003,9 @@ class Prover:
                 evals[j] += rev(r, pt)
 
     # -- round 5: linearization + opening proofs --------------------------
-    def _round5_lookup(self, root):
-        """Round 5's PlonKup inputs: the coset rows f, t, h1, h2, z2, qk,
-        the linearization scalars and the eight openings; None without
-        lookups."""
+    def _round5_lookup_scalars(self, root):
+        """Round 5's PlonKup scalars, [16, B] each: the linearization
+        scalars and the eight openings; None without lookups."""
         if not self._lookup:
             return None
         from .plonkup import linearization_scalars
@@ -924,12 +1022,7 @@ class Prover:
             opened = ("f", "t", "h1", "h2", "t_w", "h1_w", "h2_w", "z2_w")
             scalars.update({f"{k}_ev": e[k] for k in opened})
             per_proof.append(scalars)
-        lookup = {
-            name: self._bigs[:, :, self._lookup_base + i, :] for i, name in enumerate(LOOKUP_ROWS)
-            if name in ("f", "t", "h1", "h2", "z2", "qk")
-        }
-        lookup.update({k: self._col([s[k] for s in per_proof]) for k in per_proof[0]})
-        return lookup
+        return {k: self._col([s[k] for s in per_proof]) for k in per_proof[0]}
 
     def round_5(self) -> list[Message5]:
         n = self.group_order
@@ -938,24 +1031,46 @@ class Prover:
         zh_ev = [zt**n - 1 for zt in zetas]
         zeta = col(zetas)
         pi_ev = fr.from_mont_host_many(_barycentric_batch(self.PI, zeta, n))
-
-        # Expand T1..T3 to the coset (batched).
-        t_big = _coset_lift(self._t_coeffs, col(offs), n)  # [16, B, 3, 4n]
-        r_big, w_z, w_zw = _linearization_impl(
-            [self._bigs[:, :, i, :] for i in range(15)],
-            *(t_big[:, :, k, :] for k in range(3)), self._xvals,
+        scalars = [
             *(col([e[k] for e in self.evals]) for k in range(6)),
             col(pi_ev), col([h / (n * (zt - 1)) for h, zt in zip(zh_ev, zetas)]), col(zh_ev),
             col([zt**n for zt in zetas]), col([zt ** (2 * n) for zt in zetas]),
             col(self.beta), col(self.gamma), col(self.alpha),
             zeta, col([zt * root for zt in zetas]), col(self.v),
-            qcube=self._coset_qcube(self._bigs),
-            cube_ev=col([e[0] ** 3 for e in self.evals]) if self._custom else None,
-            lookup=self._round5_lookup(root),
-        )
-        del t_big
-        offinv = col([Fr(1) / o for o in offs])
-        w_coeffs = _ntt.coset_to_coeffs(torch.stack([w_z, w_zw], dim=2), offinv[..., None])
+        ]
+        cube_ev = col([e[0] ** 3 for e in self.evals]) if self._custom else None
+        lookup_scalars = self._round5_lookup_scalars(root)
+
+        if self._sharded:
+            from .parallel.sharded import sharded_round5
+
+            r_big, w_coeffs = sharded_round5(
+                self.config.mesh, self.config.mesh_axis, self._r3, self._t_coeffs[:, 0],
+                [s[:, 0] for s in scalars], offs[0], custom=self._custom,
+                cube_ev=None if cube_ev is None else cube_ev[:, 0],
+                lookup_scalars=None if lookup_scalars is None
+                else {k: v[:, 0] for k, v in lookup_scalars.items()},
+            )
+            r_big, w_coeffs = r_big[:, None], w_coeffs[:, None]
+        else:
+            # Expand T1..T3 to the coset (batched).
+            t_big = _coset_lift(self._t_coeffs, col(offs), n)  # [16, B, 3, 4n]
+            lookup = None
+            if lookup_scalars is not None:
+                lookup = {
+                    name: self._bigs[:, :, self._lookup_base + i, :]
+                    for i, name in enumerate(LOOKUP_ROWS)
+                    if name in ("f", "t", "h1", "h2", "z2", "qk")
+                }
+                lookup.update(lookup_scalars)
+            r_big, w_z, w_zw = _linearization_impl(
+                [self._bigs[:, :, i, :] for i in range(15)],
+                *(t_big[:, :, k, :] for k in range(3)), self._xvals, *scalars,
+                qcube=self._coset_qcube(self._bigs), cube_ev=cube_ev, lookup=lookup,
+            )
+            del t_big
+            offinv = col([Fr(1) / o for o in offs])
+            w_coeffs = _ntt.coset_to_coeffs(torch.stack([w_z, w_zw], dim=2), offinv[..., None])
         # A blinded Z' (degree n + 2) raises the opening quotients to n + 1.
         wlen = n + 3 if self._blind else n
 

@@ -2,7 +2,8 @@
 equal field for field to the single prover's proof of its witness; the
 JAX package's tests/test_batch.py and test_zk_blinding.py's
 batch-refuses-blinding case, with the port's refusals of lookups and of a
-device mesh (ROADMAP Queue 1, item 6).
+mesh that is not the port's Mesh (tests/test_torch_sharded_prover.py
+shards a batch over a mesh).
 """
 
 import os
@@ -41,9 +42,9 @@ def test_batch_prover_rejects_lookups(setup):
         BatchProver(setup, program)
 
 
-def test_batch_prover_mesh_names_item_6(setup):
+def test_batch_prover_mesh_must_be_a_mesh(setup):
     program = Program(THREE_GATE, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         BatchProver(setup, program, mesh=object())
 
 

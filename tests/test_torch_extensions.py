@@ -1,8 +1,9 @@
 """Extensions of the JAX package through the port's prover (CPU): ZK
 blinding rows, alone and composed at the Program level with a lookup table
 or with cube gates, prove and verify under both port verifiers and the JAX
-package's host verifier (by integer coordinates); a device mesh still
-raises NotImplementedError naming ROADMAP Queue 1, item 6.
+package's host verifier (by integer coordinates); a mesh that is not the
+port's Mesh raises TypeError (tests/test_torch_sharded_prover.py proves
+with one).
 """
 
 import os
@@ -33,7 +34,7 @@ def setup():
               blinding_rows=2, inputs={"x": 2}), None),
         (dict(lines=["y <== x * x * x"], custom_gates=True, blinding_rows=2,
               inputs={"x": 3}), None),
-        (dict(lines=["c <== a * b"], mesh=True), "item 6"),
+        (dict(lines=["c <== a * b"], mesh=True), "Mesh"),
     ],
     ids=["blinding", "blinding-with-lookups", "blinding-with-cube-gates", "mesh"],
 )
@@ -43,7 +44,7 @@ def test_extensions_outside_the_slice_raise(setup, kwargs, match):
     inputs = kwargs.pop("inputs", None)
     program = Program(lines, 8, device="cpu", **kwargs)
     if mesh:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(TypeError, match=match):
             Prover(setup, program, config=ProverConfig(mesh=object()), device="cpu")
         return
     witness = program.fill_variable_assignments(inputs)
