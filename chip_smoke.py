@@ -76,10 +76,25 @@ Phases, each printing its lines:
      equal to phase 7's single-device proof, verified, the collectives
      counted, Prover(), walls, rounds, peak and the twiddle tables' build;
      (b) two spawned ranks sharing the card over Gloo (host-staged
-     exchange): the chain at n = 2^16 against a single-device proof on
+     exchange): the chain at n = 2^14 against a single-device proof on
      the card, turbo + lookup at n = 16 against its single proof, and
      BatchProver(mesh=...) on the fixture (proof 0 is proof.pickle), the
-     launch counts gathered from both ranks.
+     launch counts gathered from both ranks;
+ 14. the SRS checkpoint cache and the MSM entry points at n = 2^18, under
+     a tempfile.mkdtemp() prefix removed at the end: (a)
+     Setup.generate(2^18, srs_cache=...) writes its .gen file (one K8a
+     launch), a second call reads it and launches nothing, the same SRS;
+     (b) on that setup Prover(), a cold chain proof and the key build and
+     write the msm3 and msm2 window tables; a fresh Setup.generate,
+     Prover(), key and cold proof in the same cache launch no K7 and no
+     K8a, the proof equal to phase 7's field for field and verified by
+     both verifiers; walls against phase 7's, the files' sizes and their
+     write and load times; (c) msm_variable_base over phase 7's SRS points
+     (device limbs) and phase 8's random coefficients equals p(tau) * G
+     on the msm3 route; (d) jac_fold_sum over the first 2^18 - 5 powers
+     as Jacobian points equals (1 + tau + ... + tau^(w-1)) * G, one
+     elementwise K8a launch a level, its first level held against the
+     plain add on CPU copies.
 Each phase drives its path with the launch counts set to 0 just before and
 read just after, prints its counts, and fails unless every kernel of ITS
 path (REQUIRED below) was launched in it.
@@ -150,8 +165,9 @@ SOURCES = {
 # mul-chain's verification key takes once: its one public input makes QL
 # the values [1, 0, 0, ...], n equal coefficients 1/n, so every window's
 # digit fills a single bucket.  K8a ("K8a", its window sum) sums
-# Setup.generate's windows in one launch; the elementwise K8a ("K8a add"),
-# K8b and K9 have no caller and run in phase 3 alone.
+# Setup.generate's windows in one launch; the elementwise K8a ("K8a add")
+# is jac_fold_sum's add (phase 14(d)); K8b and K9 have no caller and run
+# in phase 3 alone.
 _SMALL_PATH = ("K1 fr", "K1 fq", "K2", "K5", "K6", "K7")
 _LARGE_PATH = ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K6", "K7", "K8a")
 REQUIRED = {
@@ -187,6 +203,17 @@ REQUIRED = {
     # >= 8192 coefficients through msm3; every local NTT is a Stockham one.
     "sharded-2^18": ("K1 fr", "K2", "K3", "K4", "K5", "K7"),
     "sharded-2rank": ("K1 fr", "K2", "K3", "K4", "K5", "K7"),
+    # Phase 14: the cached path.  The cold Setup.generate sums its windows
+    # (K8a); Prover(), the key (its QL takes the msm2 fallback: K6) and a
+    # cold proof build the window tables (K7) and write them; the same on a
+    # fresh setup in the same cache loads them: K7 and K8a stay 0 there.
+    # msm_variable_base builds its own msm3 tables; jac_fold_sum adds a
+    # level per elementwise K8a launch.
+    "srs-cache-generate": ("K1 fq", "K8a"),
+    "srs-cache-build": ("K1 fr", "K1 fq", "K2", "K3", "K4", "K5", "K6", "K7"),
+    "srs-cache-hit": ("K1 fr", "K2", "K3", "K4", "K5", "K6"),
+    "variable-base": ("K1 fq", "K3", "K4", "K5", "K7"),
+    "fold-sum": ("K8a add",),
 }
 
 
@@ -830,7 +857,7 @@ def launches_since_reset(torch, cuda_lib, phase: str) -> dict:
 def synthetic_phase(ptt, torch, cuda_lib, n: int, phase: str, tag: str, profiled: bool):
     """Setup.generate(n) -> mul-chain -> prove -> verify, then a warm proof
     with its per-round times; returns (setup, launches over the path, the
-    prover, the witness, the warm proof)."""
+    prover, the witness, the warm proof, the cold prove wall s)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
@@ -855,11 +882,12 @@ def synthetic_phase(ptt, torch, cuda_lib, n: int, phase: str, tag: str, profiled
     if profiled:
         breakdown = device_breakdown(torch, lambda: prover.prove(dict(witness)))
         print(f"{tag} profiled warm prove: {json.dumps(breakdown)}", flush=True)
-    return setup, launches, prover, witness, proof
+    return setup, launches, prover, witness, proof, cold
 
 
 def msm_oracle_phase(torch, np, cuda_lib, setup, m: int):
-    """msm3 commits at size m against p(tau) * G, on `setup`'s engine."""
+    """msm3 commits at size m against p(tau) * G, on `setup`'s engine;
+    returns the random polynomial's device coefficients and p(tau) * G."""
     from plonkathon_tpu_torch.ec import G1, pt_mul
     from plonkathon_tpu_torch.fields import FR_MOD
     from plonkathon_tpu_torch.ops import msm3
@@ -914,6 +942,7 @@ def msm_oracle_phase(torch, np, cuda_lib, setup, m: int):
         fail("commit_batch of a normal and an overflowing polynomial differs")
     print(f"[8] commit_batch [random, overflow]: both equal their oracles; "
           f"launches {json.dumps(launches)}", flush=True)
+    return random_dev, want_random
 
 
 def _flat_ints(proof) -> dict:
@@ -1404,7 +1433,7 @@ def batch_large_phase(ptt, torch, cuda_lib, prover, b: int):
 # Phase 13: length-sharded proving on torch.distributed.
 # ---------------------------------------------------------------------------
 
-SHARDED_2RANK_N = 1 << 16  # 13(b)'s chain
+SHARDED_2RANK_N = 1 << 14  # 13(b)'s chain (cut from 2^16 to keep the smoke within 380 s)
 RANK_TIMEOUT_S = 300
 
 
@@ -1660,6 +1689,197 @@ def sharded_gloo_phase(torch):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 14: the SRS checkpoint cache and the MSM entry points.
+# ---------------------------------------------------------------------------
+
+def _timed_calls(cls, name: str, log: list):
+    """Wrap cls.name so that each call appends (args, seconds) to log."""
+    real = getattr(cls, name)
+
+    def wrapped(self, *args):
+        t0 = time.perf_counter()
+        out = real(self, *args)
+        log.append((args, time.perf_counter() - t0))
+        return out
+
+    setattr(cls, name, wrapped)
+    return real
+
+
+def srs_cache_phase(ptt, torch, np, cuda_lib, setup, program, witness, want, cold7, oracle):
+    """14: Setup(srs_cache=...) at phase 7's n on a fresh cache prefix (a)
+    the .gen file; (b) the window-table files: a cached cold proof with no
+    K7 and no K8a, equal to phase 7's `want`; (c) msm_variable_base on
+    phase 7's SRS and phase 8's `oracle` (device coefficients, p(tau) *
+    G); (d) jac_fold_sum.  Returns (launches of (b)'s cached run, launches
+    of the whole phase)."""
+    import shutil
+    import tempfile
+
+    from plonkathon_tpu_torch.ec import G1, pt_mul
+    from plonkathon_tpu_torch.fields import FR_MOD
+    from plonkathon_tpu_torch.ops import cuda_mont as CM
+    from plonkathon_tpu_torch.ops import curve
+
+    n = program.group_order
+    total = dict.fromkeys(cuda_lib.LAUNCHES, 0)
+
+    def count(phase: str) -> dict:
+        launches = launches_since_reset(torch, cuda_lib, phase)
+        for k in total:
+            total[k] += launches[k]
+        return launches
+
+    tmp = tempfile.mkdtemp(prefix="srs_cache_")
+    prefix = os.path.join(tmp, "srs")
+    try:
+        # (a) the synthetic SRS: written cold, then read.
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        first = ptt.Setup.generate(n, tau=TAU, srs_cache=prefix)
+        t_gen = time.perf_counter() - t0
+        launches = count("srs-cache-generate")
+        if launches["K8a"] != 1:
+            fail(f"14(a): the cold Setup.generate took {launches['K8a']} K8a launches, not 1")
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        loaded = ptt.Setup.generate(n, tau=TAU, srs_cache=prefix)
+        t_hit = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if any(cuda_lib.LAUNCHES.values()):
+            fail(f"14(a): the cached Setup.generate launched {json.dumps(cuda_lib.LAUNCHES)}")
+        if loaded.powers_of_x != first.powers_of_x or loaded.X2 != first.X2:
+            fail("14(a): the cached SRS differs from the generated one")
+        gen_mb = os.path.getsize(f"{prefix}.gen{n}.npz") / 1e6
+        print(f"[14a] Setup.generate({n}, srs_cache=...): cold {t_gen:.2f} s (K8a "
+              f"{launches['K8a']}, writes .gen{n}.npz, {gen_mb:.1f} MB), cached {t_hit:.2f} s "
+              f"with no launch, the same {n} powers and X2", flush=True)
+        del first
+
+        # (b) the window tables: built and written, then loaded.
+        loads, saves = [], []
+        real_load = _timed_calls(curve.FixedBaseMSM, "_load_tables", loads)
+        real_save = _timed_calls(curve.FixedBaseMSM, "_save_tables", saves)
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        prover = ptt.Prover(loaded, program)
+        proof = prover.prove(dict(witness))
+        t_cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vk = loaded.verification_key(prover.pk)
+        t_key = time.perf_counter() - t0
+        launches = count("srs-cache-build")
+        if proof.flatten() != want.flatten():
+            fail("14(b): the proof that builds the tables differs from phase 7's")
+        sizes = {f[len("srs."):]: round(os.path.getsize(os.path.join(tmp, f)) / 1e6, 1)
+                 for f in sorted(os.listdir(tmp)) if ".affine" in f}
+        if len(sizes) != 2:
+            fail(f"14(b): expected an msm2 and an msm3 table file, found {sorted(sizes)}")
+        write_s = [round(dt, 3) for _, dt in saves]
+        k7_build = launches["K7"]
+        del prover, vk, loaded
+        torch.cuda.empty_cache()
+        loads.clear()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        cached = ptt.Setup.generate(n, tau=TAU, srs_cache=prefix)
+        t_gen_hit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prover = ptt.Prover(cached, program)
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proof = prover.prove(dict(witness))
+        t_cold_hit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vk = cached.verification_key(prover.pk)
+        t_key_hit = time.perf_counter() - t0
+        hit = count("srs-cache-hit")
+        curve.FixedBaseMSM._load_tables, curve.FixedBaseMSM._save_tables = real_load, real_save
+        if hit["K7"] or hit["K8a"]:
+            fail(f"14(b): the cached run launched K7 {hit['K7']} and K8a {hit['K8a']} times")
+        if len(loads) != 2 or len(saves) != 2:
+            fail(f"14(b): {len(saves)} table writes and {len(loads)} cached loads, not 2 and 2")
+        if proof.flatten() != want.flatten():
+            fail("14(b): the cached cold proof differs from phase 7's proof")
+        for verify in (vk.verify_proof, vk.verify_proof_unoptimized):
+            if not verify(n, proof, [witness["out"]]):
+                fail(f"14(b): the cached cold proof fails {verify.__name__}")
+        load_s = {kind: round(dt, 3) for (kind, _), dt in loads}
+        # The host's share of the msm2 table load: np.load alone.
+        t0 = time.perf_counter()
+        with np.load(f"{prefix}.affine{n}.npz") as data:
+            host_mb = sum(data[k].nbytes for k in ("AX", "AY")) / 1e6
+        t_npload = time.perf_counter() - t0
+        print(f"[14b] mul-chain n = {n} on the cached setup: Prover() + cold prove "
+              f"{t_cold:.3f} s and key {t_key:.2f} s building the tables (K7 {k7_build}; "
+              f"written in {write_s} s); then a fresh Setup.generate {t_gen_hit:.2f} s, "
+              f"Prover() {t_init:.2f} s, cold prove {t_cold_hit:.3f} s and key "
+              f"{t_key_hit:.2f} s on the cached tables (phase 7's cold prove {cold7:.3f} s): "
+              f"K7 {hit['K7']}, K8a {hit['K8a']}, the proof equal to phase 7's field for field, "
+              f"both verifiers accept; table files MB {json.dumps(sizes)}, load s "
+              f"{json.dumps(load_s)} (np.load alone of the msm2 tables' {host_mb:.1f} MB "
+              f"{t_npload:.3f} s); launches of the cached run {json.dumps(hit)}", flush=True)
+        del prover, vk, cached
+        torch.cuda.empty_cache()
+
+        # (c) msm_variable_base over phase 7's SRS points as device limbs.
+        coeffs, want_pt = oracle
+        x, y = curve.points_to_device(setup.powers_of_x, coeffs.device)
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        got = curve.jac_to_affine_host(curve.msm_variable_base((x, y), coeffs))
+        t_vb = time.perf_counter() - t0
+        launches = count("variable-base")
+        if got != want_pt:
+            fail(f"14(c): msm_variable_base over {n} points differs from p(tau) * G")
+        print(f"[14c] msm_variable_base, m = {n} (phase 7's SRS, phase 8's coefficients): "
+              f"equals p(tau) * G; {t_vb:.3f} s with its msm3 tables; launches "
+              f"{json.dumps(launches)}", flush=True)
+
+        # (d) jac_fold_sum over w SRS powers, a width that is not a power of two.
+        w = n - 5
+        first_level = []
+        real_add = curve.jac_add
+
+        def first_add(p, q):  # keeps the first level's operands and sums
+            out = real_add(p, q)
+            if not first_level:
+                first_level.append((p, q, out))
+            return out
+
+        curve.jac_add = first_add
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        total_pt = curve.jac_fold_sum(curve.jac_from_affine(x[:, :w], y[:, :w]))
+        torch.cuda.synchronize()
+        t_fold = time.perf_counter() - t0
+        launches = count("fold-sum")
+        curve.jac_add = real_add
+        levels = (w - 1).bit_length()
+        if launches["K8a add"] != levels:
+            fail(f"14(d): {launches['K8a add']} elementwise K8a launches, not {levels}")
+        s = (pow(TAU, w, FR_MOD) - 1) * pow(TAU - 1, -1, FR_MOD) % FR_MOD
+        if curve.jac_to_affine_host(total_pt) != pt_mul(G1, s):
+            fail(f"14(d): jac_fold_sum over {w} powers differs from (tau^w - 1)/(tau - 1) * G")
+        p, q, out = first_level[0]
+        t0 = time.perf_counter()
+        plain = CM.jac_add_plain(tuple(c.cpu() for c in p), tuple(c.cpu() for c in q))
+        t_plain = time.perf_counter() - t0
+        err = max(_max_err(torch, o.cpu(), r) for o, r in zip(out, plain))
+        if err != 0:
+            fail(f"14(d): the fold's first level differs from the plain add (max abs err {err})")
+        print(f"[14d] jac_fold_sum over {w} powers: equals (tau^w - 1)/(tau - 1) * G; "
+              f"{t_fold * 1e3:.1f} ms, {levels} elementwise K8a launches (one a level); its "
+              f"first level ({p[0].shape[-1]} adds on column views) equal raw limbs to the plain "
+              f"add on CPU copies (max abs err {err}, {t_plain:.2f} s); launches "
+              f"{json.dumps(launches)}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return hit, total
+
+
 def main():
     try:
         import numpy as np
@@ -1726,14 +1946,14 @@ def main():
     torch.cuda.empty_cache()
 
     # 7. headline: mul-chain at n = 2^18 on a synthetic SRS
-    setup, launches, chain_prover, chain_witness7, chain_proof7 = synthetic_phase(
+    setup, launches, chain_prover, chain_witness7, chain_proof7, cold7 = synthetic_phase(
         ptt, torch, cuda_lib, HEADLINE_N, "chain-2^18", "[7]", profiled=True
     )
 
     mark("4-7")
 
     # 8. msm3 against the exact oracle, on the headline setup's engine
-    msm_oracle_phase(torch, np, cuda_lib, setup, HEADLINE_N)
+    oracle8 = msm_oracle_phase(torch, np, cuda_lib, setup, HEADLINE_N)
     mark("8")
 
     # 9. TurboPlonK cube gates + PlonKup lookups: card against CPU, then
@@ -1771,6 +1991,13 @@ def main():
                                           chain_witness7, chain_proof7)
     mark("13a")
     sharded2_launches = sharded_gloo_phase(torch)
+    mark("13b")
+
+    # 14. the SRS checkpoint cache and the MSM entry points at n = 2^18
+    cache_hit_launches, cache_launches = srs_cache_phase(
+        ptt, torch, np, cuda_lib, setup, chain_prover.program, chain_witness7, chain_proof7,
+        cold7, oracle8)
+    mark("14")
 
     for r in records:
         k = r["kernel"]
@@ -1782,6 +2009,8 @@ def main():
         r["launches_batch"] = batch_launches[k]
         r["launches_sharded"] = sharded_launches[k]
         r["launches_sharded_2rank"] = sharded2_launches[k]
+        r["launches_srs_cache"] = cache_launches[k]
+        r["launches_srs_cache_hit"] = cache_hit_launches[k]
     print(f"chip_smoke: total wall {time.perf_counter() - T_START:.1f} s", flush=True)
     print(smi, flush=True)  # again, where a tail of the output keeps it
     print(json.dumps({"kernels": records}), flush=True)

@@ -7,7 +7,10 @@ from the known generator, and the G2 block is located by scanning for the
 scaled G2 generator x-coordinate.
 
 Commitments run on the device MSM engine (ops/curve.py); the SRS window
-tables are built on the setup's device at first use.
+tables are built on the setup's device at first use.  With `srs_cache`, a
+prefix path, the synthetic SRS is kept in `{srs_cache}.gen{n}.npz` (the
+JAX package's format: either package reads the other's file) and the
+window tables in the engine's own cache files beside it.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ _G1_START = 80
 class Setup:
     powers_of_x: list  # [G, xG, x^2 G, ...] host affine points
     X2: tuple          # [x]_2 in G2
+    srs_cache: str | None = None  # optional .npz cache prefix (SRS, window tables)
     device: object = "cuda"
 
     def __post_init__(self):
@@ -41,11 +45,16 @@ class Setup:
     @property
     def msm_engine(self) -> FixedBaseMSM:
         if self._msm is None:
-            self._msm = FixedBaseMSM(self.powers_of_x, device=self.device)
+            self._msm = FixedBaseMSM(
+                self.powers_of_x, device=self.device, cache_path=self.srs_cache
+            )
         return self._msm
 
     @classmethod
-    def generate(cls, powers: int, tau: int = 0xDEADBEEF1337, device="cuda") -> "Setup":
+    def generate(
+        cls, powers: int, tau: int = 0xDEADBEEF1337, srs_cache: str | None = None,
+        device="cuda",
+    ) -> "Setup":
         """Synthetic known-tau SRS for tests/benchmarks (NOT a trusted setup).
 
         Points are computed on the device: the 8-bit digits of tau^i select
@@ -53,7 +62,10 @@ class Setup:
         window-major ([16, 32, n]), one K8a launch sums the 32 windows of
         every point in the pairwise order of a level-by-level halving
         (windows 2j, 2j + 1 first), and a batched inversion converts to
-        affine."""
+        affine.  With `srs_cache`, `{srs_cache}.gen{powers}.npz` (keys n,
+        tau, and ax, ay: canonical Montgomery limbs [16, n]) is read if its
+        n and tau match, launching nothing on the device, and written after
+        a build."""
         from .ops import curve as _curve
         from .ops.cuda_mont import jac_window_sum
         from .ops.limbs import fq as _fq
@@ -61,6 +73,20 @@ class Setup:
 
         device = resolve_device(device)
         tau = tau % FR_MOD
+        cache_file = f"{srs_cache}.gen{powers}.npz" if srs_cache else None
+        if cache_file is not None:
+            try:
+                with np.load(cache_file) as data:
+                    if int(data["n"]) == powers and int(data["tau"]) == tau:
+                        ax, ay = (_curve.as_int32(data[k]) for k in ("ax", "ay"))
+                        if ax.shape != (16, powers) or ay.shape != ax.shape:
+                            raise ValueError(f"{cache_file}: limbs of shape {ax.shape}")
+                        pts = [(Fq(a), Fq(b)) for a, b in zip(
+                            _fq.from_mont_host_many(ax), _fq.from_mont_host_many(ay))]
+                        return cls(pts, pt_mul(G2, tau), srs_cache, device=device)
+            except (OSError, KeyError, ValueError):
+                pass
+
         base = G1
         flat = []
         for _ in range(32):
@@ -89,15 +115,21 @@ class Setup:
         gz = torch.where(flag[None], _fq.full("ONE_MONT", gx), torch.zeros_like(gx))
 
         ax, ay = affine_from_jacobian(*jac_window_sum((gx, gy, gz)))
-        xs = _fq.from_mont_host_many(ax)
-        ys = _fq.from_mont_host_many(ay)
-        pts = [(Fq(a), Fq(b)) for a, b in zip(xs, ys)]
+        ax, ay = (_fq.canon(c).cpu().numpy() for c in (ax, ay))
+        pts = [(Fq(a), Fq(b)) for a, b in zip(
+            _fq.from_mont_host_many(ax), _fq.from_mont_host_many(ay))]
         if pts[0] != G1:
             raise RuntimeError("synthetic SRS sanity: tau^0 * G must be G")
-        return cls(pts, pt_mul(G2, tau), device=device)
+        if cache_file is not None:
+            try:
+                _curve.save_npz(cache_file, n=powers, tau=tau,
+                                ax=ax.astype(np.uint32), ay=ay.astype(np.uint32))
+            except OSError:
+                pass
+        return cls(pts, pt_mul(G2, tau), srs_cache, device=device)
 
     @classmethod
-    def from_file(cls, filename: str, device="cuda") -> "Setup":
+    def from_file(cls, filename: str, srs_cache: str | None = None, device="cuda") -> "Setup":
         device = resolve_device(device)
         with open(filename, "rb") as f:
             contents = f.read()
@@ -138,7 +170,7 @@ class Setup:
         x2 = (Fq2(vals[:2]), Fq2(vals[2:]))
         if not is_on_curve(x2, B2):
             raise ValueError(f"{filename}: [x]_2 is not on the twist")
-        return cls(points, x2, device=device)
+        return cls(points, x2, srs_cache, device=device)
 
     # -- commitments ------------------------------------------------------
     def commit(self, poly: Polynomial):

@@ -17,7 +17,9 @@ the plain torch version only for CPU tensors; there is no fallback from
 the card to the plain version.  The plain point formulas `_kern_double`,
 `_kern_add` and `_kern_madd` are op for op those of pallas_mont.py, on any
 `FieldOps` (the plain versions use the `plain=True` field, so they never
-launch a kernel themselves).
+launch a kernel themselves), but for work skipped where its result is
+selected away (`_select_double`, the identity lanes of `_kern_add` and
+`_kern_madd`).
 """
 
 from __future__ import annotations
@@ -150,7 +152,38 @@ def _select_double(k, same, p, r):
 
 
 def _kern_add(k, p, q):
-    """Complete Jacobian + Jacobian (identity/equal/inverse handled)."""
+    """Complete Jacobian + Jacobian (identity/equal/inverse handled).
+
+    A lane with an identity operand comes out as the other operand (p
+    where q is the identity), whatever the formula computed there, so
+    `_kern_add_lanes` runs only on the lanes where neither operand is the
+    identity and the rest are selected: the same raw limbs at less work
+    where many lanes are empty (the buckets of small commits)."""
+    arrs = torch.broadcast_tensors(*p, *q)
+    p, q = arrs[:3], arrs[3:]
+    p_inf = k.is_zero(p[2])
+    q_inf = k.is_zero(q[2])
+    both = ~(p_inf | q_inf)
+    if bool(both.all()):
+        return _kern_add_lanes(k, p, q)
+    return _on_lanes(_kern_add_lanes, k, both, p, q,
+                     tuple(k.select(q_inf, a, b) for a, b in zip(p, q)))
+
+
+def _on_lanes(formula, k, live, p, q, out):
+    """`out` ([16, *batch] coordinates) with formula(k, p, q) written into
+    the lanes where `live` holds, computed on those alone."""
+    out = tuple(o.contiguous() for o in out)
+    idx = live.reshape(-1).nonzero().reshape(-1)
+    if idx.numel():
+        sums = formula(k, *(tuple(c.reshape(NLIMBS, -1)[:, idx] for c in pt) for pt in (p, q)))
+        for o, s in zip(out, sums):
+            o.view(NLIMBS, -1)[:, idx] = s
+    return out
+
+
+def _kern_add_lanes(k, p, q):
+    """The complete add's formula and selects on every lane."""
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
     Z1Z1 = k.sqr(Z1)
@@ -186,7 +219,22 @@ def _kern_add(k, p, q):
 
 
 def _kern_madd(k, p, q_aff):
-    """Complete Jacobian + affine (q never infinity; p may be; p==q doubles)."""
+    """Complete Jacobian + affine (q never infinity; p may be; p==q doubles).
+
+    Where p is the identity the sum is (x2, y2, 1) whatever the formula
+    computed, so `_kern_madd_lanes` runs only on the other lanes (the
+    restarts of the msm2 scan make many identity lanes in small commits)."""
+    arrs = torch.broadcast_tensors(*p, *q_aff)
+    p, q_aff = arrs[:3], arrs[3:]
+    p_inf = k.is_zero(p[2])
+    if not bool(p_inf.any()):
+        return _kern_madd_lanes(k, p, q_aff)
+    return _on_lanes(_kern_madd_lanes, k, ~p_inf, p, q_aff,
+                     (q_aff[0].clone(), q_aff[1].clone(), k.full("ONE_MONT", p[2])))
+
+
+def _kern_madd_lanes(k, p, q_aff):
+    """The mixed add's formula and selects on every lane."""
     X1, Y1, Z1 = p
     X2, Y2 = q_aff
     Z1Z1 = k.sqr(Z1)

@@ -341,20 +341,20 @@ def _dense_buckets_plain(keys, pts_packed, J: int, nb: int = _NB2):
     J gather rounds, each added by the plain K4 step.  Incomplete is safe:
     every accumulator is a distinct-subset sum of SRS multiples (see the
     module docstring); a lane whose bucket has no j-th entry is dead (mask
-    bit 2) and keeps its value, so empty buckets keep the initial Z = 0."""
+    bit 2) and keeps its value, so empty buckets keep the initial Z = 0.
+    The step runs only on each round's live lanes, and no round past the
+    largest multiplicity runs: the dead lanes' values are the same."""
     T = keys.shape[0]
     bvec = torch.arange(1, nb + 1, dtype=keys.dtype, device=keys.device)
     start = torch.searchsorted(keys, bvec)
     stop = torch.searchsorted(keys, bvec + 1)
     maxmult = (stop - start).max()
     acc = pack_array(_identity_stacked(nb, keys.device))
-    for j in range(J):
+    for j in range(min(J, int(maxmult))):
         idx = start + j
-        ok = (idx < stop) & (idx < T)
-        gi = idx.clamp(max=T - 1)
-        q = pts_packed[:, gi]  # [24, nb] packed gather
-        mask = torch.where(ok, 1 if j == 0 else 0, 4).to(DTYPE)
-        acc = jadd_packed_plain(acc, q, mask)
+        live = ((idx < stop) & (idx < T)).nonzero().reshape(-1)
+        mask = torch.full(live.shape, 1 if j == 0 else 0, dtype=DTYPE, device=keys.device)
+        acc[:, live] = jadd_packed_plain(acc[:, live], pts_packed[:, idx[live]], mask)
     return unpack_array(acc), maxmult
 
 

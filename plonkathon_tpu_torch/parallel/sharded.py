@@ -34,7 +34,8 @@ import torch
 
 from ..fields import Fr, FR_MOD
 from ..ops import ntt as _ntt
-from ..ops.curve import FixedBaseMSM
+from ..ops import msm2
+from ..ops.curve import FixedBaseMSM, jac_fold_sum
 from ..ops.limbs import fr, NLIMBS, DTYPE
 from ..ops.ntt_fourstep import _stockham_axis2, _twiddle_table
 from ..prover import (
@@ -72,6 +73,25 @@ def _block(mesh: Mesh, axis: str, size: int) -> slice:
 # Sharded MSM.
 # ---------------------------------------------------------------------------
 
+def sharded_msm(mesh: Mesh, axis: str, bases, digits):
+    """MSM over bases / digits sharded along the mesh axis.
+
+    bases: (X, Y, Z) Jacobian Montgomery limbs [16, K], never the identity
+    (as `FixedBaseMSM.precomp_for` gives them); digits: int32 [K] 8-bit
+    digits (replicated).  K must divide evenly by the axis size.  Each
+    rank converts its contiguous block of the bases to affine and runs the
+    msm2 pipeline on it; the D partial points are all-gathered and summed
+    by `jac_fold_sum`.  Returns the replicated Jacobian point ([16]
+    coordinates)."""
+    k = digits.shape[-1]
+    if k % mesh.shape[axis]:
+        raise ValueError(f"{k} bases do not shard {mesh.shape[axis]} ways")
+    cols = _block(mesh, axis, k)
+    x, y = msm2.jac_to_affine_batch(*(c[:, cols] for c in bases))
+    partials = all_gather(msm2.msm_fixed_affine(x, y, digits[cols]), mesh, axis)  # [D, 48]
+    return jac_fold_sum(tuple(partials[:, i * NLIMBS : (i + 1) * NLIMBS].T for i in range(3)))
+
+
 class MeshMSM:
     """Mesh-sharded KZG commit engine.
 
@@ -83,16 +103,20 @@ class MeshMSM:
     fallback included), and the D partial points are all-gathered and
     summed.  A commitment is linear in the points, so the sum is the
     single-device commit.  A rank whose slice is all zeros still takes
-    part (its partial is the identity)."""
+    part (its partial is the identity).  With `cache_path`, rank r of D
+    caches its engine's tables under `{cache_path}.rank{r}of{D}`, so that
+    ranks never write each other's files."""
 
-    def __init__(self, points: list, n: int, mesh: Mesh, axis: str):
+    def __init__(self, points: list, n: int, mesh: Mesh, axis: str, cache_path=None):
         d = mesh.shape[axis]
         if n % d or n > len(points):
             raise ValueError(f"{n} SRS points do not shard {d} ways over an SRS of {len(points)}")
         self.n = n
         self.mesh, self.axis = mesh, axis
         self._cols = _block(mesh, axis, n)
-        self.engine = FixedBaseMSM(points[self._cols], device=mesh.device)
+        if cache_path is not None:
+            cache_path = f"{cache_path}.rank{mesh.index(axis)}of{d}"
+        self.engine = FixedBaseMSM(points[self._cols], device=mesh.device, cache_path=cache_path)
 
     def commit_batch(self, coeff_list):
         """Montgomery coefficient rows [16, m <= n] (replicated) -> host

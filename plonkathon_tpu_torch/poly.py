@@ -120,6 +120,12 @@ class Polynomial:
         return Polynomial(fr.neg(self.values), self.basis)
 
     # -- structure --------------------------------------------------------
+    def shift(self, k: int) -> "Polynomial":
+        """Cyclic left rotation of Lagrange values: p(x) -> p(omega^k x)."""
+        if self.basis != Basis.LAGRANGE:
+            raise ValueError("shift rotates Lagrange values")
+        return Polynomial(torch.roll(self.values, -k, dims=1), self.basis)
+
     # -- basis changes ----------------------------------------------------
     def fft(self, inv: bool = False) -> "Polynomial":
         if inv:
@@ -130,6 +136,12 @@ class Polynomial:
 
     def ifft(self) -> "Polynomial":
         return self.fft(True)
+
+    def to_coset_extended_lagrange(self, offset) -> "Polynomial":
+        """Values on the n domain -> values on the offset*q^i 4n coset."""
+        assert self.basis == Basis.LAGRANGE
+        off = fr.scalar(int(offset), self.device)
+        return Polynomial(_ntt.coset_extend(self.values, off), Basis.LAGRANGE)
 
     def coset_extended_lagrange_to_coeffs(self, offset) -> "Polynomial":
         """Values on the offset*q^i 4n coset -> monomial coefficients."""

@@ -560,7 +560,8 @@ class Prover:
             from .parallel.sharded import MeshMSM
 
             self._mesh_msm = MeshMSM(
-                self.setup.powers_of_x, self.group_order, self.config.mesh, self.config.mesh_axis
+                self.setup.powers_of_x, self.group_order, self.config.mesh,
+                self.config.mesh_axis, cache_path=self.setup.srs_cache,
             )
         return self._mesh_msm
 
@@ -651,6 +652,24 @@ class Prover:
         # Round 3's coset stack is the largest tensor of a proof: free it.
         self._bigs = self._xvals = self._t_coeffs = self._r3 = None
         return [Proof(*msgs) for msgs in zip(msg_1, msg_2, msg_3, msg_4, msg_5)]
+
+    # -- the JAX package's helpers, on the last proof's challenges -------
+    def _last(self, name: str):
+        """The challenge `name` of the last proof; the prover keeps one per
+        proof of a batch, so these helpers refuse after a batch of B > 1."""
+        values = getattr(self, name)
+        if len(values) != 1:
+            raise ValueError(f"the prover last ran a batch of {len(values)} proofs")
+        return values[0]
+
+    def fft_expand(self, p: Polynomial) -> Polynomial:
+        return p.to_coset_extended_lagrange(self._last("fft_cofactor"))
+
+    def expanded_evals_to_coeffs(self, p: Polynomial) -> Polynomial:
+        return p.coset_extended_lagrange_to_coeffs(self._last("fft_cofactor"))
+
+    def rlc(self, t1, t2):
+        return t1 + t2 * self._last("beta") + self._last("gamma")
 
     # -- round 1: wire polynomials ---------------------------------------
     def _lookup_columns(self, witness: dict) -> np.ndarray:

@@ -168,19 +168,27 @@ def ntt_rank(mesh, out_dir: str):
     assert torch.equal(fr.canon(got), fr.canon(N.ntt(stack, inverse=True))), "sharded_intt"
 
 
-def mesh_msm_rank(mesh):
+def mesh_msm_rank(mesh, prefix):
     """MeshMSM over the first 64 ceremony powers against the host
     ec_lincomb, through both routes: one engine as it is (msm2 at 32
-    coefficients a rank) commits 24 random coefficients (rank 1's slice is
-    all zeros) and 64; a second engine, its ranks' msm3 threshold lowered
-    to their width, commits the 64 through msm3."""
+    coefficients a rank, its tables cached under `prefix`) commits 24
+    random coefficients (rank 1's slice is all zeros) and 64; a second
+    engine, its ranks' msm3 threshold lowered to their width, commits the
+    64 through msm3.  A third engine on the same prefix loads each rank's
+    own table file (a build would raise).  sharded_msm over the 64 powers
+    as Jacobian bases (Z = 1) with random 8-bit digits equals their host
+    linear combination."""
+    import os
     import random
+
+    import torch
 
     from plonkathon_tpu_torch import Setup
     from plonkathon_tpu_torch.ec import ec_lincomb
     from plonkathon_tpu_torch.fields import FR_MOD, Fr
+    from plonkathon_tpu_torch.ops import curve, msm2
     from plonkathon_tpu_torch.ops.limbs import fr, to_device
-    from plonkathon_tpu_torch.parallel.sharded import MeshMSM
+    from plonkathon_tpu_torch.parallel.sharded import MeshMSM, sharded_msm
 
     setup = Setup.from_file(PTAU, device="cpu")
     rng = random.Random(20261019)
@@ -188,12 +196,33 @@ def mesh_msm_rank(mesh):
     coeffs[1][0], coeffs[1][-1] = 0, FR_MOD - 1
     polys = [to_device(fr.to_mont_host_many(c), "cpu") for c in coeffs]
     want = [ec_lincomb([(setup.powers_of_x[i], Fr(v)) for i, v in enumerate(c)]) for c in coeffs]
-    msm2_engine = MeshMSM(setup.powers_of_x, 64, mesh, "shard")
+    msm2_engine = MeshMSM(setup.powers_of_x, 64, mesh, "shard", cache_path=prefix)
     msm3_engine = MeshMSM(setup.powers_of_x, 64, mesh, "shard")
     msm3_engine.engine._MSM3_MIN = 32
     assert msm2_engine.commit_batch(polys) == want
     assert msm3_engine.commit_mont(polys[1]) == want[1]
     assert msm3_engine.engine._tab16_n == 32 and msm2_engine.engine._tab16_n == 0
+
+    mine = f"{prefix}.rank{mesh.index('shard')}of2.affine32.npz"
+    assert msm2_engine.engine.cache_path == f"{prefix}.rank{mesh.index('shard')}of2"
+    assert os.path.exists(mine), mine
+    built = msm2.build_affine_tables
+
+    def no_build(*args):
+        raise AssertionError("a rank rebuilt tables its cache file holds")
+
+    msm2.build_affine_tables = no_build
+    try:
+        assert MeshMSM(setup.powers_of_x, 64, mesh, "shard", cache_path=prefix).commit_mont(
+            polys[1]) == want[1]
+    finally:
+        msm2.build_affine_tables = built
+
+    digits = [rng.randrange(256) for _ in range(64)]
+    bases = curve.jac_from_affine(*curve.points_to_device(setup.powers_of_x[:64], "cpu"))
+    got = sharded_msm(mesh, "shard", bases, torch.tensor(digits, dtype=torch.int32))
+    assert curve.jac_to_affine_host(got) == ec_lincomb(
+        [(p, Fr(d)) for p, d in zip(setup.powers_of_x, digits)])
 
 
 def rounds_rank(mesh):

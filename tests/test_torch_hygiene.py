@@ -71,8 +71,8 @@ def test_chip_smoke_imports_no_jax():
     assert out[0] == "[]", out
     assert out[1] == "[] []", out  # every id is required somewhere, none unknown
     # Outside the kernel-vs-plain phase only the caller-less kernels are
-    # unnamed (K8a's elementwise add; its window sum is on the path).
-    assert out[2] == "['K8a add', 'K8b', 'K9']", out
+    # unnamed (K8b, K9; K8a's elementwise add is jac_fold_sum's, phase 14).
+    assert out[2] == "['K8b', 'K9']", out
 
 
 @pytest.fixture

@@ -1,7 +1,9 @@
 """The port's length-sharded pieces (parallel/sharded.py) on spawned CPU
 ranks over Gloo, D = 2: sharded_ntt and sharded_intt against the port's
 single-device ntt, MeshMSM against the host ec_lincomb (through msm2, and through
-msm3 on a second engine whose threshold is lowered), sharded_round2 ... sharded_round5 against the
+msm3 on a second engine whose threshold is lowered; with a cache prefix, one
+table file a rank, loaded by a second engine), sharded_msm against the same
+commit, sharded_round2 ... sharded_round5 against the
 single-device rounds on the same transcript state (the turbo + lookup
 circuit at n = 16), all equal after canon; and the one direct JAX
 comparison: the port's sharded_ntt against the JAX package's on
@@ -46,7 +48,7 @@ def test_sharded_ntt_matches_jax(sharded_ntt_out):
 
 
 def test_mesh_msm(tmp_path):
-    run_ranks(mesh_msm_rank, 2, tmp_path)
+    run_ranks(mesh_msm_rank, 2, tmp_path, str(tmp_path / "srs"))
 
 
 def test_sharded_rounds_match_single_device(tmp_path):
