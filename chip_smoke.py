@@ -75,6 +75,10 @@ Phases, each printing its lines:
      Prover(config=ProverConfig(mesh=make_mesh())): cold and warm proofs
      equal to phase 7's single-device proof, verified, the collectives
      counted, Prover(), walls, rounds, peak and the twiddle tables' build;
+     then on that mesh MeshMSM(setup.msm_engine, mesh, "shard").msm_mont
+     of phase 8's 2^18 coefficients against the engine's msm_mont, and
+     sharded_msm over the 2^18 SRS powers as Jacobian bases, five of them
+     the identity, against the engine's commit of the same digits;
      (b) two spawned ranks sharing the card over Gloo (host-staged
      exchange): the chain at n = 2^14 against a single-device proof on
      the card, turbo + lookup at n = 16 against its single proof, and
@@ -91,10 +95,10 @@ Phases, each printing its lines:
      both verifiers; walls against phase 7's, the files' sizes and their
      write and load times; (c) msm_variable_base over phase 7's SRS points
      (device limbs) and phase 8's random coefficients equals p(tau) * G
-     on the msm3 route; (d) jac_fold_sum over the first 2^18 - 5 powers
-     as Jacobian points equals (1 + tau + ... + tau^(w-1)) * G, one
-     elementwise K8a launch a level, its first level held against the
-     plain add on CPU copies.
+     on the msm3 route; (d) jac_fold_sum of width 0 on CUDA tensors is
+     the identity, and over the first 2^18 - 5 powers as Jacobian points
+     equals (1 + tau + ... + tau^(w-1)) * G, one elementwise K8a launch a
+     level, its first level held against the plain add on CPU copies.
 Each phase drives its path with the launch counts set to 0 just before and
 read just after, prints its counts, and fails unless every kernel of ITS
 path (REQUIRED below) was launched in it.
@@ -885,6 +889,15 @@ def synthetic_phase(ptt, torch, cuda_lib, n: int, phase: str, tag: str, profiled
     return setup, launches, prover, witness, proof, cold
 
 
+def _oracle_coeffs(rng, m: int) -> list:
+    """Phase 8's m random Fr coefficients, 0 and r - 1 first."""
+    from plonkathon_tpu_torch.fields import FR_MOD
+
+    coeffs = [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(m)]
+    coeffs[0], coeffs[1] = 0, FR_MOD - 1
+    return coeffs
+
+
 def msm_oracle_phase(torch, np, cuda_lib, setup, m: int):
     """msm3 commits at size m against p(tau) * G, on `setup`'s engine;
     returns the random polynomial's device coefficients and p(tau) * G."""
@@ -895,8 +908,7 @@ def msm_oracle_phase(torch, np, cuda_lib, setup, m: int):
 
     eng = setup.msm_engine
     rng = np.random.default_rng(20260818)
-    coeffs = [int.from_bytes(rng.bytes(32), "little") % FR_MOD for _ in range(m)]
-    coeffs[0], coeffs[1] = 0, FR_MOD - 1
+    coeffs = _oracle_coeffs(rng, m)
     acc = 0
     for c in reversed(coeffs):  # Horner: p(tau)
         acc = (acc * TAU + c) % FR_MOD
@@ -1461,6 +1473,52 @@ def _missing_kernels(phase: str, launches: dict) -> list:
     return [k for k in REQUIRED[phase] if launches[k] == 0]
 
 
+def mesh_msm_checks(torch, np, setup, mesh, coeffs) -> dict:
+    """13(a)'s engine checks on the phase's mesh, run by every rank:
+    MeshMSM(setup.msm_engine, mesh, "shard").msm_mont of phase 8's random
+    polynomial (cold: the ranks' tables built in it; then warm) against
+    the engine's own msm_mont, and sharded_msm over the SRS powers as
+    Jacobian bases, five of them the identity, with random 8-bit digits,
+    against the engine's commit of those digits with the identity lanes'
+    set to 0.  Compared as affine points; returns the walls in s."""
+    from plonkathon_tpu_torch.ops import curve
+    from plonkathon_tpu_torch.ops.limbs import fr, to_device
+    from plonkathon_tpu_torch.parallel.sharded import MeshMSM, sharded_msm
+
+    eng = setup.msm_engine
+    walls = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - t0, 4)
+        return curve.jac_to_affine_host(out)
+
+    mesh_eng = MeshMSM(eng, mesh, "shard")
+    got_cold = timed("MeshMSM.msm_mont cold", lambda: mesh_eng.msm_mont(coeffs))
+    got = timed("MeshMSM.msm_mont", lambda: mesh_eng.msm_mont(coeffs))
+    want = timed("engine msm_mont", lambda: eng.msm_mont(coeffs))
+    if not got_cold == got == want:
+        fail(f"13(a): MeshMSM.msm_mont of {coeffs.shape[-1]} coefficients differs from the "
+             f"single-device engine's")
+    rng = np.random.default_rng(20261019)
+    digits = rng.integers(0, 256, eng.n).astype(np.int32)
+    ident = np.sort(rng.choice(eng.n, 5, replace=False))
+    X, Y, Z = curve.jac_from_affine(*curve.points_to_device(setup.powers_of_x, eng.device))
+    Z[:, torch.from_numpy(ident).to(eng.device)] = 0
+    dev_digits = torch.from_numpy(digits).to(eng.device)
+    got = timed("sharded_msm", lambda: sharded_msm(mesh, "shard", (X, Y, Z), dev_digits))
+    digits[ident] = 0
+    masked = to_device(fr.to_mont_host_many(digits.tolist()), eng.device)
+    want = timed("engine msm_mont of the digits", lambda: eng.msm_mont(masked))
+    if got != want:
+        fail(f"13(a): sharded_msm over {eng.n} bases with identity lanes {ident.tolist()} "
+             f"differs from the single-device commit")
+    return walls
+
+
 def _nccl_helper(i: int, world: int, port: int, n: int):
     """13(a)'s rank i + 1 on its own card: the same collectives as rank
     0, in the same order (the cold sharded chain proof, the launch
@@ -1485,17 +1543,25 @@ def _nccl_helper(i: int, world: int, port: int, n: int):
     prover.prove(dict(witness))
     all_gather_object(dict(cuda_lib.LAUNCHES), mesh, "shard")
     prover.prove(dict(witness))
+    import numpy as np
+    import torch
+
+    from plonkathon_tpu_torch.ops.limbs import fr, to_device
+
+    coeffs = _oracle_coeffs(np.random.default_rng(20260818), n)
+    mesh_msm_checks(torch, np, setup, mesh, to_device(fr.to_mont_host_many(coeffs), setup.device))
     dist.destroy_process_group()
 
 
-def sharded_nccl_phase(ptt, torch, cuda_lib, setup, program, witness, want):
+def sharded_nccl_phase(ptt, torch, np, cuda_lib, setup, program, witness, want, coeffs):
     """13(a): the mul-chain on phase 7's setup proved length-sharded over
     NCCL, one rank per visible GPU (this process is rank 0), through
     Prover(config=ProverConfig(mesh=make_mesh())): equal to phase 7's
     single-device proof `want` of the same witness, verified; Prover(),
     cold and warm walls, rounds, peak, collectives, the twiddle matrices'
-    and permuted tables' build; returns the launches of Prover() and the
-    cold proof, summed over the ranks."""
+    and permuted tables' build; then the mesh engine checks on the same
+    mesh (`mesh_msm_checks`, phase 8's coefficients `coeffs`); returns the
+    launches of Prover() and the cold proof, summed over the ranks."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
@@ -1562,9 +1628,17 @@ def sharded_nccl_phase(ptt, torch, cuda_lib, setup, program, witness, want):
     sharded._perm_tables(n1, n2, (block.start, block.stop), mesh.device)
     torch.cuda.synchronize()
     t_perm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walls = mesh_msm_checks(torch, np, setup, mesh, coeffs)
+    t_checks = time.perf_counter() - t0
     dist.destroy_process_group()
     if helpers is not None:
         _join(helpers, "13(a)")
+    print(f"[13a] MeshMSM(setup.msm_engine, mesh, \"shard\").msm_mont of phase 8's {n} "
+          f"coefficients equals the engine's msm_mont (cold, its rank tables built in it, and "
+          f"warm); sharded_msm over the {n} SRS powers as Jacobian bases, five of them the "
+          f"identity, equals the engine's commit of the digits with those lanes 0; walls s "
+          f"{json.dumps(walls)}; {t_checks:.1f} s for these checks in all", flush=True)
     print(f"[13a] sharded mul-chain n = {n} over NCCL, {world} rank(s), one per visible GPU "
           f"(n1 = {n1}, n2 = {n2}): cold and warm proofs equal the single-device proof "
           f"(phase 7's in the smoke) field for field, verified; Prover() {t_init:.2f} s, cold prove "
@@ -1870,6 +1944,16 @@ def srs_cache_phase(ptt, torch, np, cuda_lib, setup, program, witness, want, col
         err = max(_max_err(torch, o.cpu(), r) for o, r in zip(out, plain))
         if err != 0:
             fail(f"14(d): the fold's first level differs from the plain add (max abs err {err})")
+        cuda_lib.reset_launches()
+        empty = curve.jac_fold_sum(tuple(c[:, :0] for c in curve.jac_from_affine(x, y)))
+        if curve.jac_to_affine_host(empty) is not None or not all(
+                torch.equal(e, i) for e, i in zip(empty, curve.jac_identity((), x.device))):
+            fail("14(d): jac_fold_sum of width 0 is not the identity")
+        launched = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+        if launched or not all(e.is_cuda for e in empty):
+            fail(f"14(d): jac_fold_sum of width 0 launched {launched} or left the card")
+        print("[14d] jac_fold_sum of width 0 on CUDA tensors: the identity (1, 1, 0) on the "
+              "card, as the JAX package pads it to one identity; no launch", flush=True)
         print(f"[14d] jac_fold_sum over {w} powers: equals (tau^w - 1)/(tau - 1) * G; "
               f"{t_fold * 1e3:.1f} ms, {levels} elementwise K8a launches (one a level); its "
               f"first level ({p[0].shape[-1]} adds on column views) equal raw limbs to the plain "
@@ -1987,8 +2071,8 @@ def main():
 
     # 13. length-sharded proving: the chain at n = 2^18 over NCCL, one rank
     # per visible GPU, then two ranks sharing the card over Gloo
-    sharded_launches = sharded_nccl_phase(ptt, torch, cuda_lib, setup, chain_prover.program,
-                                          chain_witness7, chain_proof7)
+    sharded_launches = sharded_nccl_phase(ptt, torch, np, cuda_lib, setup, chain_prover.program,
+                                          chain_witness7, chain_proof7, oracle8[0])
     mark("13a")
     sharded2_launches = sharded_gloo_phase(torch)
     mark("13b")

@@ -80,10 +80,13 @@ def pt_double(p):
 
 
 def pt_mul(pt, k: int):
-    """Scalar multiplication (double-and-add, MSB first)."""
+    """Scalar multiplication: on G1 the Jacobian `msm` of one term, on G2
+    double-and-add, MSB first."""
     k = int(k) % FR_MOD
     if k == 0 or pt is None:
         return None
+    if isinstance(pt[0], Fq):
+        return msm([(pt, k)])
     result = None
     for bit in bin(k)[2:]:
         result = pt_double(result)
@@ -99,12 +102,64 @@ def ec_mul(pt, coeff):
     return pt_mul(pt, coeff % FR_MOD)
 
 
+def _jac_double(p):
+    """Jacobian doubling on G1 over ints mod q (a = 0; Y != 0 on G1, whose
+    order is prime)."""
+    X, Y, Z = p
+    q = FQ_MOD
+    A = X * X % q
+    B = Y * Y % q
+    C = B * B % q
+    D = 2 * ((X + B) * (X + B) - A - C) % q
+    E = 3 * A % q
+    X3 = (E * E - 2 * D) % q
+    return X3, (E * (D - X3) - 8 * C) % q, 2 * Y * Z % q
+
+
+def _jac_add(p, r):
+    """Jacobian add on G1 over ints mod q; None is the identity."""
+    if p is None:
+        return r
+    if r is None:
+        return p
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = r
+    q = FQ_MOD
+    Z1Z1 = Z1 * Z1 % q
+    Z2Z2 = Z2 * Z2 % q
+    U1 = X1 * Z2Z2 % q
+    S1 = Y1 * Z2 * Z2Z2 % q
+    H = (X2 * Z1Z1 - U1) % q
+    R = (Y2 * Z1 * Z1Z1 - S1) % q
+    if H == 0:
+        return _jac_double(p) if R == 0 else None
+    HH = H * H % q
+    HHH = H * HH % q
+    V = U1 * HH % q
+    X3 = (R * R - HHH - 2 * V) % q
+    return X3, (R * (V - X3) - S1 * HHH) % q, Z1 * Z2 * H % q
+
+
+def _jac_to_affine(p):
+    """Jacobian G1 point over ints (or None) -> affine Fq pair (or None):
+    the G1 Pippenger's one inversion, where the affine adds take one an
+    add."""
+    if p is None:
+        return None
+    X, Y, Z = p
+    zi = pow(Z, -1, FQ_MOD)
+    zi2 = zi * zi % FQ_MOD
+    return Fq(X * zi2), Fq(Y * zi2 * zi)
+
+
 def msm(pairs):
     """Multi-scalar multiplication sum(coeff_i * point_i) on the host.
 
     Windowed Pippenger (4-bit windows).  Used by the verifier (small inputs)
     and as the oracle for the device MSM.  Replaces reference curve.py:38-111
-    with a standard bucket method rather than the multicomb scheme.
+    with a standard bucket method rather than the multicomb scheme.  G1
+    sums run in Jacobian coordinates over ints; G2 sums in affine ones
+    over Fq2.
     """
     window = 4
     nbuckets = 1 << window
@@ -115,25 +170,30 @@ def msm(pairs):
             prepared.append((pt, c))
     if not prepared:
         return None
+    if isinstance(prepared[0][0][0], Fq):
+        add, double, finish = _jac_add, _jac_double, _jac_to_affine
+        prepared = [((x.n, y.n, 1), c) for (x, y), c in prepared]
+    else:
+        add, double, finish = pt_add, pt_double, lambda p: p
     nwindows = (FR_MOD.bit_length() + window - 1) // window
     total = None
     for w in range(nwindows - 1, -1, -1):
         if total is not None:
             for _ in range(window):
-                total = pt_double(total)
+                total = double(total)
         buckets = [None] * nbuckets
         shift = w * window
         for pt, c in prepared:
             digit = (c >> shift) & (nbuckets - 1)
             if digit:
-                buckets[digit] = pt_add(buckets[digit], pt)
+                buckets[digit] = add(buckets[digit], pt)
         running = None
         acc = None
         for d in range(nbuckets - 1, 0, -1):
-            running = pt_add(running, buckets[d])
-            acc = pt_add(acc, running)
-        total = pt_add(total, acc)
-    return total
+            running = add(running, buckets[d])
+            acc = add(acc, running)
+        total = add(total, acc)
+    return finish(total)
 
 
 def ec_lincomb(pairs):

@@ -324,7 +324,7 @@ def verify_lookup(
     """Verify a LookupProof against `table` (t_1: optional precomputed
     table commitment — the verifier's preprocessed input)."""
     from .ec import G1, G2, ec_lincomb, ec_mul, pt_add
-    from .pairing import pairing
+    from .pairing import pairings_equal
 
     n = len(table)
     tvals = [x % FR_MOD for x in table]
@@ -391,10 +391,7 @@ def verify_lookup(
         (agg_z, val_z, proof.W_z_1, zeta),
         (agg_zw, val_zw, proof.W_zw_1, zeta * root),
     ):
-        lhs = pairing(
-            pt_add(setup.X2, ec_mul(G2, -point)), W
-        )
-        rhs = pairing(G2, ec_lincomb([(agg, 1), (G1, -val)]))
-        if lhs != rhs:
+        if not pairings_equal(pt_add(setup.X2, ec_mul(G2, -point)), W,
+                              G2, ec_lincomb([(agg, 1), (G1, -val)])):
             return False
     return True

@@ -15,11 +15,12 @@ here (CUDA C++ in `csrc/mont.cu`, over `csrc/field.cuh` and `csrc/g1.cuh`):
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes
 the plain torch version only for CPU tensors; there is no fallback from
 the card to the plain version.  The plain point formulas `_kern_double`,
-`_kern_add` and `_kern_madd` are op for op those of pallas_mont.py, on any
-`FieldOps` (the plain versions use the `plain=True` field, so they never
-launch a kernel themselves), but for work skipped where its result is
-selected away (`_select_double`, the identity lanes of `_kern_add` and
-`_kern_madd`).
+`_kern_add` and `_kern_madd` compute the products and sums of those of
+pallas_mont.py, on any `FieldOps` (the plain versions use the `plain=True`
+field, so they never launch a kernel themselves), with each step's
+independent products stacked into one call, and with work skipped where
+its result is selected away (`_select_double`, the identity lanes of
+`_kern_add` and `_kern_madd`).
 """
 
 from __future__ import annotations
@@ -121,24 +122,46 @@ def dif_butterfly(c0, c1, tw):
 
 
 # ---------------------------------------------------------------------------
-# Plain G1 point formulas (a = 0, identity = Z == 0), op for op the
-# pallas_mont kernel bodies.
+# Plain G1 point formulas (a = 0, identity = Z == 0): the products, sums
+# and selects of the pallas_mont kernel bodies.  The independent products
+# of each step go through ONE `k.mul` on the stacked operands (`_muls`),
+# and likewise the independent sums (`_adds`): each lane's integer is the
+# same, so the raw limbs are, at a third to a half of the calls.
 # ---------------------------------------------------------------------------
+
+def _stacked(fn, pairs):
+    """fn(x, y) of each pair (x, y) of [16, *batch] limbs (broadcasting),
+    in one call on the pairs stacked along a new axis 1."""
+    ops = torch.broadcast_tensors(*(x for x, _ in pairs), *(y for _, y in pairs))
+    n = len(pairs)
+    out = fn(torch.stack(ops[:n], 1), torch.stack(ops[n:], 1))
+    return tuple(out[:, i] for i in range(n))
+
+
+def _muls(k, *pairs):
+    return _stacked(k.mul, pairs)
+
+
+def _adds(k, *pairs):
+    return _stacked(k.add, pairs)
+
+
+def _subs(k, *pairs):
+    return _stacked(k.sub, pairs)
+
 
 def _kern_double(k, p):
     X, Y, Z = p
-    A = k.sqr(X)
-    B = k.sqr(Y)
-    C = k.sqr(B)
-    D = k.sub(k.sqr(k.add(X, B)), k.add(A, C))
-    D = k.add(D, D)
-    E = k.add(k.add(A, A), A)
-    F = k.sqr(E)
-    X3 = k.sub(F, k.add(D, D))
-    C2 = k.add(C, C)
-    C8 = k.add(k.add(C2, C2), k.add(C2, C2))
+    A, B, Z3 = _muls(k, (X, X), (Y, Y), (k.add(Y, Y), Z))  # Z3 = 2Y * Z
+    XB, A2 = _adds(k, (X, B), (A, A))
+    E = k.add(A2, A)
+    C, XB2, F = _muls(k, (B, B), (XB, XB), (E, E))
+    AC, C2 = _adds(k, (A, C), (C, C))
+    D = k.sub(XB2, AC)
+    D, C4 = _adds(k, (D, D), (C2, C2))
+    D2, C8 = _adds(k, (D, D), (C4, C4))
+    X3 = k.sub(F, D2)
     Y3 = k.sub(k.mul(E, k.sub(D, X3)), C8)
-    Z3 = k.mul(k.add(Y, Y), Z)
     return X3, Y3, Z3
 
 
@@ -161,8 +184,7 @@ def _kern_add(k, p, q):
     where many lanes are empty (the buckets of small commits)."""
     arrs = torch.broadcast_tensors(*p, *q)
     p, q = arrs[:3], arrs[3:]
-    p_inf = k.is_zero(p[2])
-    q_inf = k.is_zero(q[2])
+    p_inf, q_inf = k.is_zero(torch.stack([p[2], q[2]], 1))
     both = ~(p_inf | q_inf)
     if bool(both.all()):
         return _kern_add_lanes(k, p, q)
@@ -182,31 +204,48 @@ def _on_lanes(formula, k, live, p, q, out):
     return out
 
 
+def add_core(k, p, q):
+    """The Jacobian add's formula, no case handled: (X3, Y3, Z3, H, R),
+    16 products in 6 calls."""
+    X1, Y1, Z1 = p
+    X2, Y2, Z2 = q
+    Z1Z1, Z2Z2, Z1Z2 = _muls(k, (Z1, Z1), (Z2, Z2), (Z1, Z2))
+    U1, U2, Z2c, Z1c = _muls(k, (X1, Z2Z2), (X2, Z1Z1), (Z2, Z2Z2), (Z1, Z1Z1))
+    S1, S2 = _muls(k, (Y1, Z2c), (Y2, Z1c))
+    H, R = _subs(k, (U2, U1), (S2, S1))
+    HH, RR, Z3 = _muls(k, (H, H), (R, R), (Z1Z2, H))
+    HHH, V = _muls(k, (H, HH), (U1, HH))
+    X3 = k.sub(k.sub(RR, HHH), k.add(V, V))
+    RV, SH = _muls(k, (R, k.sub(V, X3)), (S1, HHH))
+    return X3, k.sub(RV, SH), Z3, H, R
+
+
+def madd_core(k, p, q_aff):
+    """The mixed add's formula, no case handled: (X3, Y3, Z3, H, R),
+    11 products in 6 calls."""
+    X1, Y1, Z1 = p
+    X2, Y2 = q_aff
+    Z1Z1 = k.sqr(Z1)
+    U2, Z1c = _muls(k, (X2, Z1Z1), (Z1, Z1Z1))
+    S2 = k.mul(Y2, Z1c)
+    H, R = _subs(k, (U2, X1), (S2, Y1))
+    HH, RR, Z3 = _muls(k, (H, H), (R, R), (Z1, H))
+    HHH, V = _muls(k, (H, HH), (X1, HH))
+    X3 = k.sub(k.sub(RR, HHH), k.add(V, V))
+    RV, YH = _muls(k, (R, k.sub(V, X3)), (Y1, HHH))
+    return X3, k.sub(RV, YH), Z3, H, R
+
+
 def _kern_add_lanes(k, p, q):
     """The complete add's formula and selects on every lane."""
     X1, Y1, Z1 = p
     X2, Y2, Z2 = q
-    Z1Z1 = k.sqr(Z1)
-    Z2Z2 = k.sqr(Z2)
-    U1 = k.mul(X1, Z2Z2)
-    U2 = k.mul(X2, Z1Z1)
-    S1 = k.mul(Y1, k.mul(Z2, Z2Z2))
-    S2 = k.mul(Y2, k.mul(Z1, Z1Z1))
-    H = k.sub(U2, U1)
-    R = k.sub(S2, S1)
-    HH = k.sqr(H)
-    HHH = k.mul(H, HH)
-    V = k.mul(U1, HH)
-    X3 = k.sub(k.sub(k.sqr(R), HHH), k.add(V, V))
-    Y3 = k.sub(k.mul(R, k.sub(V, X3)), k.mul(S1, HHH))
-    Z3 = k.mul(k.mul(Z1, Z2), H)
-
-    p_inf = k.is_zero(Z1)
-    q_inf = k.is_zero(Z2)
+    X3, Y3, Z3, H, R = add_core(k, p, q)
+    p_inf, q_inf, h_zero, r_zero = k.is_zero(torch.stack([Z1, Z2, H, R], 1))
     either = p_inf | q_inf
-    h_zero = k.is_zero(H) & ~either
-    same = h_zero & k.is_zero(R)
-    cancel = h_zero & ~k.is_zero(R)
+    h_zero = h_zero & ~either
+    same = h_zero & r_zero
+    cancel = h_zero & ~r_zero
 
     if bool(same.any()):
         X3, Y3, Z3 = _select_double(k, same, p, (X3, Y3, Z3))
@@ -235,24 +274,12 @@ def _kern_madd(k, p, q_aff):
 
 def _kern_madd_lanes(k, p, q_aff):
     """The mixed add's formula and selects on every lane."""
-    X1, Y1, Z1 = p
     X2, Y2 = q_aff
-    Z1Z1 = k.sqr(Z1)
-    U2 = k.mul(X2, Z1Z1)
-    S2 = k.mul(Y2, k.mul(Z1, Z1Z1))
-    H = k.sub(U2, X1)
-    R = k.sub(S2, Y1)
-    HH = k.sqr(H)
-    HHH = k.mul(H, HH)
-    V = k.mul(X1, HH)
-    X3 = k.sub(k.sub(k.sqr(R), HHH), k.add(V, V))
-    Y3 = k.sub(k.mul(R, k.sub(V, X3)), k.mul(Y1, HHH))
-    Z3 = k.mul(Z1, H)
-
-    p_inf = k.is_zero(Z1)
-    h_zero = k.is_zero(H) & ~p_inf
-    same = h_zero & k.is_zero(R)
-    cancel = h_zero & ~k.is_zero(R)
+    X3, Y3, Z3, H, R = madd_core(k, p, q_aff)
+    p_inf, h_zero, r_zero = k.is_zero(torch.stack([p[2], H, R], 1))
+    h_zero = h_zero & ~p_inf
+    same = h_zero & r_zero
+    cancel = h_zero & ~r_zero
 
     if bool(same.any()):
         X3, Y3, Z3 = _select_double(k, same, p, (X3, Y3, Z3))

@@ -61,7 +61,8 @@ def _bit_reversed(k: int, device):
 
 
 def jac_fold_sum(p):
-    """Sum a Jacobian batch over its last axis (any width >= 1): [16, *batch].
+    """Sum a Jacobian batch over its last axis: [16, *batch] (the identity
+    for width 0, as the JAX package pads it to one identity).
 
     The JAX package's order: pad with identities to a power of two, then
     halve level by level, each level adding lanes (2j, 2j + 1).  On lanes
@@ -70,8 +71,8 @@ def jac_fold_sum(p):
     two column views, with no copy of its operands."""
     X, Y, Z = p
     n = X.shape[-1]
-    if n < 1:
-        raise ValueError("jac_fold_sum of an empty batch")
+    if n == 0:
+        return jac_identity(X.shape[1:-1], X.device)
     k = (n - 1).bit_length()
     if (1 << k) != n:
         ident = jac_identity(X.shape[1:-1] + ((1 << k) - n,), X.device)
@@ -110,14 +111,15 @@ def jac_to_affine_host(p):
 
 
 def _digits_impl(raw_scalars):
-    """Canonical limbs [16, n] -> window-major flattened 8-bit digits [32n]."""
-    lo = raw_scalars & 0xFF
-    hi = raw_scalars >> 8
-    return torch.stack([lo, hi], dim=1).reshape(-1)
+    """Canonical limbs [16, n] -> window-major flattened 8-bit digits
+    [32n]; [16, B, n] -> [B, 32n]."""
+    r = raw_scalars.movedim(0, -2)  # [..., 16, n]
+    return torch.stack([r & 0xFF, r >> 8], dim=-2).reshape(r.shape[:-2] + (-1,))
 
 
 def _coeff_digits(coeffs_mont):
-    """Montgomery coefficients [16, m] -> window-major 8-bit digits [32m]."""
+    """Montgomery coefficients [16, m] -> window-major 8-bit digits [32m];
+    [16, B, m] -> [B, 32m]."""
     return _digits_impl(fr.from_mont(coeffs_mont))
 
 
@@ -214,6 +216,13 @@ class FixedBaseMSM:
         self._tab_n = 0
         self.affine16_tab = None  # packed 16-bit tables (msm3)
         self._tab16_n = 0
+
+    def block(self, cols: slice, cache_path, device) -> "FixedBaseMSM":
+        """A FixedBaseMSM over this engine's points [cols] on `device`,
+        with its own table cache prefix (a mesh rank's block)."""
+        if self._limbs is not None:
+            return FixedBaseMSM(tuple(c[:, cols].to(device) for c in self._limbs))
+        return FixedBaseMSM(self._points[cols], device=device, cache_path=cache_path)
 
     def _need(self, m: int) -> int:
         """Bases the tables must cover for a commit of m <= n coefficients:
@@ -314,9 +323,31 @@ class FixedBaseMSM:
         return msm3.signed_digits16(fr.from_mont(coeffs_mont), self._tab16_n)
 
     def _msm2_stacked(self, coeffs_mont):
-        """MSM through the 8-bit pipeline -> [48] Jacobian limbs."""
+        """MSM through the 8-bit pipeline: [16, m] -> [48] Jacobian limbs;
+        [16, B, m] (B commits of one width) -> [B, 48] in one pipeline."""
         tabx, taby = self._tables_for(coeffs_mont.shape[-1])
         return msm2.msm_fixed_affine(tabx, taby, _coeff_digits(coeffs_mont))
+
+    def _deferred_all(self, coeff_list):
+        """`msm_mont_deferred` of each row, but the msm2-route rows of one
+        width go through ONE batched pipeline (a group of one as it is):
+        fewer, wider calls, each commit's lanes and result the same."""
+        outs = [None] * len(coeff_list)
+        groups: dict = {}
+        for i, coeffs in enumerate(coeff_list):
+            m = coeffs.shape[-1]
+            if m >= self._MSM3_MIN or m > self.n:
+                outs[i] = self.msm_mont_deferred(coeffs)
+            else:
+                groups.setdefault(m, []).append(i)
+        for idx in groups.values():
+            if len(idx) == 1:
+                outs[idx[0]] = (self._msm2_stacked(coeff_list[idx[0]]), None)
+                continue
+            res = self._msm2_stacked(torch.stack([coeff_list[i] for i in idx], dim=1))
+            for j, i in enumerate(idx):
+                outs[i] = (res[j], None)
+        return outs
 
     def msm_mont_deferred(self, coeffs_mont):
         """Device-side MSM of Montgomery coefficients [16, m], m <= n:
@@ -357,8 +388,9 @@ class FixedBaseMSM:
         results and msm3's multiplicities come back together.  A
         multiplicity above `msm3._J` (pathological digit concentration: more
         same-bucket runs than the dense gather folds) is rare; such a
-        polynomial is recommitted through msm2 afterwards."""
-        outs = [self.msm_mont_deferred(c) for c in coeff_list]
+        polynomial is recommitted through msm2 afterwards.  The msm2-route
+        polynomials of one width share one pipeline (`_deferred_all`)."""
+        outs = self._deferred_all(coeff_list)
         zero = torch.zeros((), dtype=DTYPE, device=self.device)
         rows = torch.stack([
             torch.cat([res, (zero if mm is None else mm.to(DTYPE))[None]])

@@ -17,8 +17,8 @@ Same wire format as the JAX package's `ops/limbs.py`:
 `mul` is the dispatch point for the Montgomery-product kernel
 (`ops/cuda_mont.py`): a CUDA tensor launches it at any width, a CPU tensor
 takes the plain version.  Everything else here is plain torch on either
-device; plain arithmetic widens to int64, where 16x16-bit products and
-their column sums never overflow.
+device; plain arithmetic widens to int64 (and to float64 for wide
+products), where 16x16-bit products and their column sums are exact.
 """
 
 from __future__ import annotations
@@ -96,6 +96,15 @@ def resolve_device(device) -> torch.device:
 
 # ---------------------------------------------------------------------------
 # Plain carry / borrow machinery (int64 limb rows).
+#
+# Every function is exact integer arithmetic, so the limbs it returns are
+# the only ones a correct implementation can return, and two of them may
+# be chosen by cost.  On a card the lazy add / sub / canon resolve their
+# carries with a Kogge-Stone prefix: a fixed number of ops and no read
+# back to the host, so the proof's rounds queue without a stall.  On the
+# CPU, where each torch op costs microseconds of dispatch whatever its
+# width, they resolve them by split-carry passes until none is left
+# (`_normalize`), in a third of the ops.
 # ---------------------------------------------------------------------------
 
 def _shift_up(x, s: int):
@@ -124,6 +133,66 @@ def _sub_limbs(a, b):
     d = a - b
     g = _prefix(d < 0, d == 0)
     return (d - _shift_up(g, 1).to(d.dtype)) & LIMB_MASK, g[-1]
+
+
+_SKEW_MAX = 64  # widest `_redc` whose products are outer products (`_columns`)
+_CHUNK = 1 << 20  # lanes per `_redc` call (its int64 temporaries: ~1 KiB a lane)
+
+
+def _normalize(t, passes: int = 1, top: bool = False):
+    """Int64 limb rows of any sign -> 16-bit digits of the same integer mod
+    2^(16 rows), in place; with `top`, (digits, the carry out of the top
+    row, None for none).
+
+    Split-carry passes: each moves every row's bits above 16 one row up.
+    Rows below 2^(16 k) settle in about k passes; a carry rippling through
+    0xFFFF digits takes one pass a digit, which is rare in random digits,
+    so the loop runs until no row carries.  The first `passes` run without
+    that check."""
+    out = None
+    while True:
+        c = torch.bitwise_right_shift(t, LIMB_BITS)
+        if passes <= 0 and not c.count_nonzero().item():
+            return (t, out) if top else t
+        passes -= 1
+        t.bitwise_and_(LIMB_MASK)
+        t[1:].add_(c[:-1])
+        if top:
+            out = c[-1] if out is None else out + c[-1]
+
+
+def _columns(a, b, buf):
+    """Schoolbook product columns sum_{i+j=k} a_i b_j of limb rows a, b
+    [16, w] (either may be [16, 1]) -> int64 [32, w] (row 31 is zero), in
+    three ops: the outer product is written into `buf`, a zeroed int64
+    [16, 32, w], through the view whose row i starts i columns in (stride
+    33 w over the rows), and one sum over the 16 rows adds each column.
+    The other cells stay zero, so `buf` serves the next product too."""
+    w = buf.shape[-1]
+    skew = buf.as_strided((NLIMBS, NLIMBS, w), ((2 * NLIMBS + 1) * w, w, 1))
+    torch.mul(a.to(torch.int64)[:, None], b.to(torch.int64)[None, :], out=skew)
+    return buf.sum(0)
+
+
+def _columns_f64(a, b):
+    """The same columns as float64, in 16 row-shifted `addcmul_`s on a
+    [32, w] accumulator: vectorized where int64 products are not, and
+    exact, every partial sum an integer below 2^36."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    t = torch.zeros((2 * NLIMBS, a.shape[1]), dtype=torch.float64, device=a.device)
+    for i in range(NLIMBS):
+        t[i : i + NLIMBS].addcmul_(a[i], b)
+    return t
+
+
+def _toeplitz(digits, rows: int, device) -> torch.Tensor:
+    """float64 [rows, 16] matrix M[k, i] = digits[k - i] (0 outside 0..15):
+    M @ x holds the product columns of the constant and x."""
+    m = np.zeros((rows, NLIMBS))
+    for i in range(NLIMBS):
+        for k in range(i, min(rows, i + NLIMBS)):
+            m[k, i] = int(digits[k - i])
+    return torch.tensor(m, dtype=torch.float64, device=device)
 
 
 def _col(vals, ndim: int, device) -> torch.Tensor:
@@ -170,11 +239,18 @@ class FieldOps:
             self._cache[key] = t
         return t
 
-    def _c64(self, name: str, like) -> torch.Tensor:
-        key = (name, str(like.device), like.ndim, "i64")
+    def _c64(self, name: str, like, pair: bool = False) -> torch.Tensor:
+        """int64 column of a constant, [16, 1, ...] against `like`; with
+        `pair`, [16, 2, 1, ...]: zero beside it ("M2" is -2p)."""
+        key = (name, str(like.device), like.ndim, pair)
         t = self._cache.get(key)
         if t is None:
-            t = _col(getattr(self, name), like.ndim, like.device)
+            if name == "M2":
+                t = -_col(self.P2, like.ndim, like.device)
+            else:
+                t = _col(getattr(self, name), like.ndim, like.device)
+            if pair:
+                t = torch.stack([torch.zeros_like(t), t], 1)
             self._cache[key] = t
         return t
 
@@ -209,19 +285,43 @@ class FieldOps:
         d, borrow = _sub_limbs(s, self._c64(name, s))
         return torch.where(borrow[None], s, d)
 
+    def _pair(self, x, name: str):
+        """[16, 2, *batch] int64: x beside x + c (`name` "P2") or x - c
+        ("M2": -2p), normalized together; their carries out of the top."""
+        return _normalize(x[:, None] + self._c64(name, x, pair=True), top=True)
+
     def canon(self, a):
-        """Lazy [0, 2p) -> canonical [0, p)."""
-        return self._cond_sub(a.to(torch.int64), "P").to(DTYPE)
+        """Lazy [0, 2p) -> canonical [0, p): a - p unless that borrows."""
+        a = a.to(torch.int64)
+        if a.device.type != "cpu":
+            return self._cond_sub(a, "P").to(DTYPE)
+        d, top = _normalize(a - self._c64("P", a), passes=0, top=True)
+        return (d if top is None else torch.where(top[None] < 0, a, d)).to(DTYPE)
 
     def add(self, a, b):
-        s = _carry1(a.to(torch.int64) + b.to(torch.int64))
-        return self._cond_sub(s, "P2").to(DTYPE)
+        """s = a + b mod 2^256, less 2p if s >= 2p.  On the CPU s and s - 2p
+        are normalized side by side, and s - 2p borrowed past s's own carry
+        out exactly when s < 2p."""
+        s = a.to(torch.int64) + b
+        if s.device.type != "cpu":
+            return self._cond_sub(_carry1(s), "P2").to(DTYPE)
+        y, top = self._pair(s, "M2")
+        if top is None:
+            return y[:, 1].to(DTYPE)
+        return torch.where((top[1] < top[0])[None], y[:, 0], y[:, 1]).to(DTYPE)
 
     def sub(self, a, b):
-        a, b = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
-        d, borrow = _sub_limbs(a, b)
-        d = d + torch.where(borrow[None], self._c64("P2", d), 0)
-        return _carry1(d).to(DTYPE)
+        """a - b, plus 2p where it borrows (mod 2^256).  On the CPU a - b
+        and a - b + 2p are normalized side by side."""
+        if a.device.type != "cpu" or b.device.type != "cpu":
+            a, b = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
+            d, borrow = _sub_limbs(a, b)
+            d = d + torch.where(borrow[None], self._c64("P2", d), 0)
+            return _carry1(d).to(DTYPE)
+        y, top = self._pair(a.to(torch.int64) - b, "P2")
+        if top is None:
+            return y[:, 0].to(DTYPE)
+        return torch.where((top[0] < 0)[None], y[:, 1], y[:, 0]).to(DTYPE)
 
     def neg(self, a):
         return self.sub(torch.zeros_like(a), a)
@@ -230,29 +330,71 @@ class FieldOps:
     def mul_plain(self, a, b):
         """Montgomery product a*b*2^-256 mod p, lazy [0, 2p) in and out.
 
-        Schoolbook columns in int64 (each < 2^36), then a digit-serial REDC
-        over 16-bit digits: m_i zeroes digit i, m_i * p is added at column
-        i, and the digit's carry moves up.  The sum of the m_i is the
-        unique m < 2^256 with a*b + m*p = 0 mod 2^256, so the result is the
-        same integer every Montgomery implementation gives.
-        """
-        a, b = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
-        t = torch.zeros((2 * NLIMBS + 1,) + a.shape[1:], dtype=torch.int64,
-                        device=a.device)
-        for i in range(NLIMBS):
-            t[i : i + NLIMBS].addcmul_(a[i], b)
-        p = self._c64("P", a)
-        for i in range(NLIMBS):
-            m = ((t[i] & LIMB_MASK) * self._n0) & LIMB_MASK
-            t[i : i + NLIMBS].addcmul_(m, p)
-            t[i + 1] += t[i] >> LIMB_BITS
-        rows = []
-        carry = t[NLIMBS]
-        for k in range(NLIMBS, 2 * NLIMBS):
-            v = carry if k == NLIMBS else t[k] + carry
-            rows.append(v & LIMB_MASK)
-            carry = v >> LIMB_BITS
-        return torch.stack(rows).to(DTYPE)
+        The result is the one integer (a*b + m*p) / 2^256 with m < 2^256
+        and a*b + m*p = 0 mod 2^256, so it is the same integer every
+        Montgomery implementation gives.  Here it is computed in a few wide
+        int64 and float64 ops (`_redc`), a chunk of lanes at a time."""
+        a, b = torch.broadcast_tensors(a, b)
+        shape = a.shape
+        a = a.reshape(NLIMBS, -1)
+        b = b.reshape(NLIMBS, -1)
+        w = a.shape[1]
+        if w <= _CHUNK:
+            return self._redc(a, b).reshape(shape)
+        out = torch.empty((NLIMBS, w), dtype=DTYPE, device=a.device)
+        for s in range(0, w, _CHUNK):
+            out[:, s : s + _CHUNK] = self._redc(a[:, s : s + _CHUNK], b[:, s : s + _CHUNK])
+        return out.reshape(shape)
+
+    def _redc(self, a, b):
+        """a*b*2^-256 on int32 limb rows [16, w], in int64 and float64.
+
+        T: the product columns of a*b, each < 2^36.  m = (T mod 2^256) *
+        (-p^-1) mod 2^256, from T's low columns as they are (each column
+        of that product < 2^56), and U = T + m*p: columns < 2^37, whose
+        low 16 hold a multiple of 2^256.  Those low digits are all zero, so
+        normalizing them would ripple one pass a row; their carry into
+        column 16 is read from columns 15 and 14 alone instead: with X =
+        U_15 * 2^16 + U_14, the low columns are c * 2^256 = (X + e) * 2^224
+        for an integer e in [0, 2^37 / (2^16 - 1)), so c = (X + 2^22) >> 32.
+
+        Narrow (op count first), the products in int64 (`_columns`).  Wide
+        (memory traffic first), a*b in float64 (`_columns_f64`) and the two
+        products by a constant as float64 matmuls with its Toeplitz
+        matrix, exact where every partial sum is below 2^53: -p^-1's digits
+        split into their 8-bit halves against T (sums < 2^48), and p's
+        against m's 16-bit digits (< 2^36)."""
+        if a.shape[1] <= _SKEW_MAX:
+            buf = torch.zeros((NLIMBS, 2 * NLIMBS, a.shape[1]), dtype=torch.int64, device=a.device)
+            t = _columns(a, b, buf)
+            m = _normalize(_columns(t[:NLIMBS], self._c64("NPRIME", t), buf)[:NLIMBS], passes=4)
+            u = (t + _columns(m, self._c64("P", t), buf))[NLIMBS - 2 :]
+        else:
+            tf = _columns_f64(a, b)
+            halves = (self._toe("NPRIME", a.device) @ tf[:NLIMBS]).to(torch.int64)
+            m = _normalize(halves[:NLIMBS] + (halves[NLIMBS:] << 8), passes=4)
+            # U's columns are below 2^37, exact in float64 too.
+            u = (tf + self._toe("P", a.device) @ m.to(torch.float64))[NLIMBS - 2 :].to(torch.int64)
+        hi = u[2:]
+        hi[0] += ((u[1] << LIMB_BITS) + u[0] + (1 << 22)) >> 32
+        return _normalize(hi, passes=3).to(DTYPE)
+
+    def _toe(self, name: str, device) -> torch.Tensor:
+        """The float64 matrices of `_redc`'s wide products, cached per
+        device: [32, 16] for "P" (p's product columns), and for "NPRIME"
+        the low 16 product columns of -p^-1's low bytes over those of its
+        high bytes."""
+        key = (name, str(device), "toeplitz")
+        t = self._cache.get(key)
+        if t is None:
+            if name == "P":
+                t = _toeplitz(self.P, 2 * NLIMBS, device)
+            else:
+                lo = self.NPRIME.astype(np.int64) & 0xFF
+                hi = self.NPRIME.astype(np.int64) >> 8
+                t = torch.cat([_toeplitz(lo, NLIMBS, device), _toeplitz(hi, NLIMBS, device)])
+            self._cache[key] = t
+        return t
 
     def mul(self, a, b):
         """Montgomery product; the Montgomery-product kernel on CUDA tensors."""
@@ -336,7 +478,8 @@ class FieldOps:
 
     # -- predicates (canonicalizing) --------------------------------------
     def is_zero(self, a):
-        return torch.all(self.canon(a) == 0, dim=0)
+        """canon(a) == 0, which holds for a = 0 and a = p only."""
+        return torch.all(a == 0, dim=0) | torch.all(a == self.const("P", a.device, a.ndim), dim=0)
 
     def eq(self, a, b):
         return torch.all(self.canon(a) == self.canon(b), dim=0)

@@ -120,20 +120,26 @@ def run_scan(dig, prev, pts):
 # ---------------------------------------------------------------------------
 
 def _fold_stacked(arr, add=jadd_stacked):
-    """[48, W] -> [48, W/2] ... -> [48, 1] by pairwise complete adds."""
+    """[48, ..., W] -> [48, ..., W/2] ... -> [48, ..., 1] by pairwise
+    complete adds over the last axis."""
     w = arr.shape[-1]
     m = 1 << (w - 1).bit_length()
     if m != w:
-        arr = torch.cat([arr, _identity_stacked(m - w, arr.device)], dim=1)
+        pad = _identity_stacked(m - w, arr.device)
+        pad = pad.reshape((3 * NLIMBS,) + (1,) * (arr.ndim - 2) + (m - w,))
+        arr = torch.cat([arr, pad.expand(arr.shape[:-1] + (m - w,))], dim=-1)
     while m > 1:
         half = m // 2
-        arr = add(arr[:, :half], arr[:, half:m])
+        lead = arr.shape[:-1]
+        arr = add(arr[..., :half].reshape(3 * NLIMBS, -1),
+                  arr[..., half:m].reshape(3 * NLIMBS, -1)).reshape(lead + (half,))
         m = half
     return arr
 
 
 def _suffix_scan_stacked(arr):
-    """Inclusive suffix sums over the last axis: C_t = sum_{d>=t} B_d."""
+    """Inclusive suffix sums over the last axis of [48, ..., w]:
+    C_t = sum_{d>=t} B_d."""
     w = arr.shape[-1]
     steps = max((w - 1).bit_length(), 1)
     pos = torch.arange(w, device=arr.device)
@@ -142,7 +148,7 @@ def _suffix_scan_stacked(arr):
         rolled = torch.roll(arr, -shift, dims=-1)
         valid = (pos < w - shift).to(DTYPE)
         rolled = torch.cat([rolled[: 2 * NLIMBS], rolled[2 * NLIMBS :] * valid], dim=0)
-        arr = jadd_stacked(rolled, arr)
+        arr = jadd_stacked(rolled.reshape(3 * NLIMBS, -1), arr.reshape(3 * NLIMBS, -1)).reshape(arr.shape)
     return arr
 
 
@@ -163,41 +169,48 @@ def _choose_chunks(k: int) -> int:
 
 
 def _msm_impl(tabx, taby, digits, c: int, s: int):
-    """tabx/taby: [16, K] affine bases; digits: [K] int32; K = c*s."""
-    order = torch.argsort(digits, stable=True)
-    d = digits[order]
-    dc = d.reshape(c, s)
+    """tabx/taby: [16, K] affine bases; digits: [B, K] int32, one row a
+    commit; K = c*s.  The B commits share every step: their chunks sit
+    side by side in K6's scan (B * c chunks), and each fold and scan adds
+    their lanes in one call.  Every lane is the one a commit alone has, so
+    each commit's result is the same raw limbs.  -> [B, 48]."""
+    nb = digits.shape[0]
+    order = torch.argsort(digits, dim=1, stable=True)
+    d = torch.gather(digits, 1, order)
+    dc = d.reshape(nb * c, s)  # commit b's chunks are rows b*c ... b*c + c - 1
     prev = torch.cat([dc[:, :1], dc[:, :-1]], dim=1)
-    pts = torch.cat([tabx[:, order], taby[:, order]], dim=0)  # [32, K]
-    pts = pts.reshape(2 * NLIMBS, c, s).permute(2, 0, 1)  # [S, 32, C]
+    pts = torch.cat([tabx[:, order], taby[:, order]], dim=0)  # [32, B, K]
+    pts = pts.reshape(2 * NLIMBS, nb * c, s).permute(2, 0, 1)  # [S, 32, B*C]
     prefix = run_scan(dc.T.contiguous(), prev.T.contiguous(), pts.contiguous())
 
     bvec = torch.arange(NB, dtype=digits.dtype, device=digits.device)
-    idx = torch.searchsorted(dc, bvec.expand(c, NB).contiguous(), right=True) - 1
+    idx = torch.searchsorted(dc, bvec.expand(nb * c, NB).contiguous(), right=True) - 1
     gidx = idx.clamp(min=0)
     valid = (idx >= 0) & (torch.gather(dc, 1, gidx) == bvec[None, :]) & (bvec[None, :] > 0)
     # bucket[b, l, ch] = prefix[gidx[ch, b], l, ch]
     buckets = torch.gather(
-        prefix, 0, gidx.T[:, None, :].expand(NB, 3 * NLIMBS, c)
-    )  # [NB, 48, C]
+        prefix, 0, gidx.T[:, None, :].expand(NB, 3 * NLIMBS, nb * c)
+    )  # [NB, 48, B*C]
     zpart = buckets[:, 2 * NLIMBS :, :] * valid.T[:, None, :].to(DTYPE)
     buckets = torch.cat([buckets[:, : 2 * NLIMBS, :], zpart], dim=1)
-    buckets = buckets.permute(1, 0, 2)  # [48, NB, C]
+    buckets = buckets.permute(1, 0, 2).reshape(3 * NLIMBS, NB, nb, c)
 
     m = c
     while m > 1:
         half = m // 2
-        a = buckets[:, :, :half].reshape(3 * NLIMBS, -1)
-        b = buckets[:, :, half:m].reshape(3 * NLIMBS, -1)
-        buckets = jadd_stacked(a, b).reshape(3 * NLIMBS, NB, half)
+        a = buckets[..., :half].reshape(3 * NLIMBS, -1)
+        b = buckets[..., half:m].reshape(3 * NLIMBS, -1)
+        buckets = jadd_stacked(a, b).reshape(3 * NLIMBS, NB, nb, half)
         m = half
-    buckets = buckets[:, 1:, 0]  # [48, NB-1] (drop bucket 0)
-    return _fold_stacked(_suffix_scan_stacked(buckets))[:, 0]  # [48]
+    buckets = buckets[:, 1:, :, 0].transpose(1, 2)  # [48, B, NB-1] (drop bucket 0)
+    return _fold_stacked(_suffix_scan_stacked(buckets))[..., 0].T  # [B, 48]
 
 
 def msm_fixed_affine(tabx, taby, digits):
-    """MSM over pre-shifted affine window tables; returns [48] Jacobian limbs."""
-    k = digits.shape[0]
+    """MSM over pre-shifted affine window tables; digits [K] -> [48]
+    Jacobian limbs, or [B, K] (B commits over the same tables, in one
+    pipeline) -> [B, 48]."""
+    k = digits.shape[-1]
     c = _choose_chunks(k)
     # Steps per chunk are rounded up to a multiple of 16 once above it, as
     # the JAX pipeline does for its 16-step kernel unroll (m = 544 gives
@@ -206,11 +219,13 @@ def msm_fixed_affine(tabx, taby, digits):
     if s > _STEP_ALIGN:
         s = -(-s // _STEP_ALIGN) * _STEP_ALIGN
     padk = c * s - k
+    rows = digits.reshape(-1, k)
     if padk:
-        digits = torch.cat([digits, digits.new_zeros(padk)])
+        rows = torch.cat([rows, rows.new_zeros((rows.shape[0], padk))], dim=1)
         tabx = torch.cat([tabx, tabx[:, :1].expand(NLIMBS, padk)], dim=1)
         taby = torch.cat([taby, taby[:, :1].expand(NLIMBS, padk)], dim=1)
-    return _msm_impl(tabx, taby, digits, c, s)
+    out = _msm_impl(tabx, taby, rows, c, s)
+    return out[0] if digits.ndim == 1 else out
 
 
 # ---------------------------------------------------------------------------

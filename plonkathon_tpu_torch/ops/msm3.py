@@ -65,7 +65,9 @@ import torch
 
 from .limbs import fq, fq_plain, NLIMBS, DTYPE, LIMB_MASK, LIMB_BITS
 from .cuda_lib import fn, check, stream_ptr, count_launch
-from .cuda_mont import check_limbs, field_consts, jac_double_n, unstack_points
+from .cuda_mont import (
+    add_core, check_limbs, field_consts, jac_double_n, madd_core, unstack_points,
+)
 from .msm2 import jadd_stacked_plain, _fold_stacked, _identity_stacked, jac_to_affine_batch
 
 WBITS = 16
@@ -106,19 +108,8 @@ def _kern_madd_inc(k, p, q_aff, fresh):
 
     Incomplete: assumes p is non-identity and p != +-q on live lanes (see
     the module docstring for why that holds for in-run partial sums)."""
-    X1, Y1, Z1 = p
     X2, Y2 = q_aff
-    Z1Z1 = k.sqr(Z1)
-    U2 = k.mul(X2, Z1Z1)
-    S2 = k.mul(Y2, k.mul(Z1, Z1Z1))
-    H = k.sub(U2, X1)
-    R = k.sub(S2, Y1)
-    HH = k.sqr(H)
-    HHH = k.mul(H, HH)
-    V = k.mul(X1, HH)
-    X3 = k.sub(k.sub(k.sqr(R), HHH), k.add(V, V))
-    Y3 = k.sub(k.mul(R, k.sub(V, X3)), k.mul(Y1, HHH))
-    Z3 = k.mul(Z1, H)
+    X3, Y3, Z3, _, _ = madd_core(k, p, q_aff)
     one = k.full("ONE_MONT", Z3)
     return k.select(fresh, X2, X3), k.select(fresh, Y2, Y3), k.select(fresh, one, Z3)
 
@@ -126,22 +117,8 @@ def _kern_madd_inc(k, p, q_aff, fresh):
 def _kern_jadd_inc(k, p, q, fresh):
     """Jacobian += Jacobian, 16 products (4 of them squarings); fresh lanes
     restart at q."""
-    X1, Y1, Z1 = p
     X2, Y2, Z2 = q
-    Z1Z1 = k.sqr(Z1)
-    Z2Z2 = k.sqr(Z2)
-    U1 = k.mul(X1, Z2Z2)
-    U2 = k.mul(X2, Z1Z1)
-    S1 = k.mul(Y1, k.mul(Z2, Z2Z2))
-    S2 = k.mul(Y2, k.mul(Z1, Z1Z1))
-    H = k.sub(U2, U1)
-    R = k.sub(S2, S1)
-    HH = k.sqr(H)
-    HHH = k.mul(H, HH)
-    V = k.mul(U1, HH)
-    X3 = k.sub(k.sub(k.sqr(R), HHH), k.add(V, V))
-    Y3 = k.sub(k.mul(R, k.sub(V, X3)), k.mul(S1, HHH))
-    Z3 = k.mul(k.mul(Z1, Z2), H)
+    X3, Y3, Z3, _, _ = add_core(k, p, q)
     return k.select(fresh, X2, X3), k.select(fresh, Y2, Y3), k.select(fresh, Z2, Z3)
 
 

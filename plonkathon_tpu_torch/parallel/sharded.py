@@ -35,8 +35,8 @@ import torch
 from ..fields import Fr, FR_MOD
 from ..ops import ntt as _ntt
 from ..ops import msm2
-from ..ops.curve import FixedBaseMSM, jac_fold_sum
-from ..ops.limbs import fr, NLIMBS, DTYPE
+from ..ops.curve import FixedBaseMSM, jac_fold_sum, jac_identity
+from ..ops.limbs import fq, fr, NLIMBS, DTYPE
 from ..ops.ntt_fourstep import _stockham_axis2, _twiddle_table
 from ..prover import (
     LOOKUP_ROWS,
@@ -76,10 +76,11 @@ def _block(mesh: Mesh, axis: str, size: int) -> slice:
 def sharded_msm(mesh: Mesh, axis: str, bases, digits):
     """MSM over bases / digits sharded along the mesh axis.
 
-    bases: (X, Y, Z) Jacobian Montgomery limbs [16, K], never the identity
-    (as `FixedBaseMSM.precomp_for` gives them); digits: int32 [K] 8-bit
-    digits (replicated).  K must divide evenly by the axis size.  Each
-    rank converts its contiguous block of the bases to affine and runs the
+    bases: (X, Y, Z) Jacobian Montgomery limbs [16, K], the identity (Z =
+    0) allowed; digits: int32 [K] 8-bit digits (replicated).  K must
+    divide evenly by the axis size.  Each rank takes its contiguous block,
+    gives its identity lanes Z = 1 and digit 0 (bucket 0 is dropped, so
+    such a lane adds nothing), converts the block to affine and runs the
     msm2 pipeline on it; the D partial points are all-gathered and summed
     by `jac_fold_sum`.  Returns the replicated Jacobian point ([16]
     coordinates)."""
@@ -87,53 +88,88 @@ def sharded_msm(mesh: Mesh, axis: str, bases, digits):
     if k % mesh.shape[axis]:
         raise ValueError(f"{k} bases do not shard {mesh.shape[axis]} ways")
     cols = _block(mesh, axis, k)
-    x, y = msm2.jac_to_affine_batch(*(c[:, cols] for c in bases))
-    partials = all_gather(msm2.msm_fixed_affine(x, y, digits[cols]), mesh, axis)  # [D, 48]
+    x, y, z = (c[:, cols] for c in bases)
+    ident = fq.is_zero(z)
+    z = torch.where(ident[None], fq.const("ONE_MONT", z.device, 2), z)
+    x, y = msm2.jac_to_affine_batch(x, y, z)
+    local = msm2.msm_fixed_affine(x, y, torch.where(ident, 0, digits[cols]))
+    return _fold_partials(local, mesh, axis)
+
+
+def _fold_partials(local, mesh: Mesh, axis: str):
+    """Each rank's [48] Jacobian partial -> their replicated sum, [16]
+    coordinates: one all_gather, then `jac_fold_sum`."""
+    partials = all_gather(local, mesh, axis)  # [D, 48]
     return jac_fold_sum(tuple(partials[:, i * NLIMBS : (i + 1) * NLIMBS].T for i in range(3)))
 
 
 class MeshMSM:
-    """Mesh-sharded KZG commit engine.
+    """Mesh-sharded KZG commit engine over a `FixedBaseMSM`.
 
-    Each rank holds a FixedBaseMSM over its contiguous 1/D of the first n
-    SRS points (n the group order), so the window tables are sharded as the
-    JAX package shards its Jacobian tables.  A commit of m <= n
-    coefficients pads them to n; each rank commits its slice through its
-    engine (msm3 from 8192 coefficients a rank, msm2 below, msm3's overflow
-    fallback included), and the D partial points are all-gathered and
-    summed.  A commitment is linear in the points, so the sum is the
-    single-device commit.  A rank whose slice is all zeros still takes
-    part (its partial is the identity).  With `cache_path`, rank r of D
-    caches its engine's tables under `{cache_path}.rank{r}of{D}`, so that
+    The engine's first n points (n = engine.n unless given; the prover
+    shards only its group order's) are cut into D contiguous blocks of
+    ceil(n / D), the last shorter and any past n empty.  Each rank holds a
+    FixedBaseMSM over its block on the engine's device, so the window
+    tables are sharded as the JAX package shards its Jacobian tables.  A
+    commit of m <= n coefficients pads them with zeros to n; each rank
+    commits its slice through its engine (msm3 from 8192 coefficients a
+    rank, msm2 below, msm3's overflow fallback included), and the D
+    partial points are all-gathered and summed.  A commitment is linear
+    in the points, so the sum is the single-device commit.  A rank whose
+    slice is all zeros, or whose block is empty, still takes part (its
+    partial is the identity).  If the engine has a `cache_path`, rank r of
+    D caches its engine's tables under `{cache_path}.rank{r}of{D}`, so that
     ranks never write each other's files."""
 
-    def __init__(self, points: list, n: int, mesh: Mesh, axis: str, cache_path=None):
+    def __init__(self, engine: FixedBaseMSM, mesh: Mesh, axis: str, n: int | None = None):
         d = mesh.shape[axis]
-        if n % d or n > len(points):
-            raise ValueError(f"{n} SRS points do not shard {d} ways over an SRS of {len(points)}")
+        n = engine.n if n is None else n
+        if n > engine.n:
+            raise ValueError(f"{n} points asked of an engine of {engine.n}")
         self.n = n
         self.mesh, self.axis = mesh, axis
-        self._cols = _block(mesh, axis, n)
+        width = -(-n // d)
+        start = min(mesh.index(axis) * width, n)
+        self._cols = slice(start, min(start + width, n))
+        cache_path = engine.cache_path
         if cache_path is not None:
             cache_path = f"{cache_path}.rank{mesh.index(axis)}of{d}"
-        self.engine = FixedBaseMSM(points[self._cols], device=mesh.device, cache_path=cache_path)
+        self.engine = (engine.block(self._cols, cache_path, mesh.device)
+                       if self._cols.stop > start else None)
+
+    def _slices(self, coeff_list):
+        """This rank's block of each zero-padded coefficient row."""
+        width = self._cols.stop - self._cols.start
+        parts = []
+        for coeffs in coeff_list:
+            if coeffs.shape[-1] > self.n:
+                raise ValueError("polynomial degree exceeds the mesh engine's SRS")
+            mine = coeffs[:, self._cols]
+            if mine.shape[-1] < width:
+                pad = torch.zeros((NLIMBS, width - mine.shape[-1]), dtype=DTYPE, device=coeffs.device)
+                mine = torch.cat([mine, pad], dim=1)
+            parts.append(mine)
+        return parts
+
+    def msm_mont(self, coeffs_mont):
+        """Montgomery coefficients [16, m <= n] (replicated) -> the
+        replicated Jacobian commit, a triple of [16] limbs on this rank's
+        device: one all_gather of the D partials, then `jac_fold_sum`."""
+        (mine,) = self._slices([coeffs_mont])
+        if self.engine is None:
+            local = torch.cat(jac_identity((), self.mesh.device))
+        else:
+            local = torch.cat(self.engine.msm_mont(mine))
+        return _fold_partials(local, self.mesh, self.axis)
 
     def commit_batch(self, coeff_list):
         """Montgomery coefficient rows [16, m <= n] (replicated) -> host
         affine points, one all_gather for the whole list."""
         from ..ec import pt_add
 
-        width = self._cols.stop - self._cols.start
-        parts = []
-        for coeffs in coeff_list:
-            if coeffs.shape[-1] > self.n:
-                raise ValueError("polynomial degree exceeds the mesh engine's SRS slice")
-            mine = coeffs[:, self._cols]
-            if mine.shape[-1] < width:
-                pad = torch.zeros((NLIMBS, width - mine.shape[-1]), dtype=DTYPE, device=coeffs.device)
-                mine = torch.cat([mine, pad], dim=1)
-            parts.append(mine)
-        partials = all_gather_object(self.engine.commit_batch(parts), self.mesh, self.axis)
+        parts = self._slices(coeff_list)
+        mine = self.engine.commit_batch(parts) if self.engine is not None else [None] * len(parts)
+        partials = all_gather_object(mine, self.mesh, self.axis)
         out = []
         for i in range(len(coeff_list)):
             acc = None

@@ -560,8 +560,8 @@ class Prover:
             from .parallel.sharded import MeshMSM
 
             self._mesh_msm = MeshMSM(
-                self.setup.powers_of_x, self.group_order, self.config.mesh,
-                self.config.mesh_axis, cache_path=self.setup.srs_cache,
+                self.setup.msm_engine, self.config.mesh, self.config.mesh_axis,
+                n=self.group_order,
             )
         return self._mesh_msm
 

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 
 from .fields import Fr, FQ_MOD, FR_MOD
 from .ec import B1, G1, G2, ec_lincomb, ec_mul, is_on_curve, pt_add
-from .pairing import pairing
+from .pairing import pairings_equal
 from .transcript import Transcript
 
 # Proof wire format: 9 G1 points + 6 scalars, plus the PlonKup extension's
@@ -279,10 +279,8 @@ class VerificationKey:
         # Combined KZG opening check at zeta and zeta*omega with one random
         # linear combination (weight u): e([W_z + u W_zw], [x]_2) ==
         # e([zeta W_z + u zeta w W_zw + F - E], [1]_2).
-        lhs = pairing(
-            self.X_2, ec_lincomb([(proof["W_z_1"], 1), (proof["W_zw_1"], u)])
-        )
-        rhs = pairing(
+        return pairings_equal(
+            self.X_2, ec_lincomb([(proof["W_z_1"], 1), (proof["W_zw_1"], u)]),
             G2,
             ec_lincomb(
                 [
@@ -293,7 +291,6 @@ class VerificationKey:
                 ]
             ),
         )
-        return lhs == rhs
 
     # -- unoptimized: explicit R reconstruction, two pairing checks -------
     def verify_proof_unoptimized(self, group_order: int, pf, public=()) -> bool:
@@ -383,8 +380,8 @@ class VerificationKey:
             ]
             + lk_open_z
         )
-        if pairing(G2, agg) != pairing(
-            pt_add(self.X_2, ec_mul(G2, -zeta)), proof["W_z_1"]
+        if not pairings_equal(
+            G2, agg, pt_add(self.X_2, ec_mul(G2, -zeta)), proof["W_z_1"]
         ):
             return False  # opening check at zeta failed
 
@@ -399,8 +396,9 @@ class VerificationKey:
                 (proof["h2_1"], v**3), (G1, -(v**3) * e["h2_w"]),
                 (proof["z2_1"], v**4), (G1, -(v**4) * e["z2_w"]),
             ]
-        if pairing(G2, ec_lincomb(zw_terms)) != pairing(
-            pt_add(self.X_2, ec_mul(G2, -zeta * self.w)), proof["W_zw_1"]
+        if not pairings_equal(
+            G2, ec_lincomb(zw_terms), pt_add(self.X_2, ec_mul(G2, -zeta * self.w)),
+            proof["W_zw_1"],
         ):
             return False  # opening check at zeta*omega failed
         return True

@@ -169,39 +169,61 @@ def ntt_rank(mesh, out_dir: str):
 
 
 def mesh_msm_rank(mesh, prefix):
-    """MeshMSM over the first 64 ceremony powers against the host
-    ec_lincomb, through both routes: one engine as it is (msm2 at 32
-    coefficients a rank, its tables cached under `prefix`) commits 24
-    random coefficients (rank 1's slice is all zeros) and 64; a second
-    engine, its ranks' msm3 threshold lowered to their width, commits the
-    64 through msm3.  A third engine on the same prefix loads each rank's
-    own table file (a build would raise).  sharded_msm over the 64 powers
-    as Jacobian bases (Z = 1) with random 8-bit digits equals their host
-    linear combination."""
+    """MeshMSM over engines of ceremony powers against the host ec_lincomb.
+
+    Through both routes: MeshMSM(engine, mesh, axis) over an engine of 64
+    powers (msm2 at 32 coefficients a rank, its tables cached under
+    `prefix`) commits 24 random coefficients (rank 1's slice is all zeros)
+    and 64, by `commit_batch` and by `msm_mont`; a second, its ranks' msm3
+    threshold lowered to their width, commits the 64 through msm3 both
+    ways.  `msm_mont` also on an engine of 67 powers (blocks of 34 and 33)
+    and of 1 (rank 1's block is empty); m > n raises.  A third engine on
+    the same prefix loads each rank's own table file (a build would
+    raise).  sharded_msm over the 64 powers as Jacobian bases (Z = 1) with
+    random 8-bit digits equals their host linear combination, and over
+    (3G, the identity, 7G, 11G) and a block of four identities with digits
+    1..8 equals 3G + 21G + 44G."""
     import os
     import random
 
     import torch
 
     from plonkathon_tpu_torch import Setup
-    from plonkathon_tpu_torch.ec import ec_lincomb
+    from plonkathon_tpu_torch.ec import G1, ec_lincomb, pt_mul
     from plonkathon_tpu_torch.fields import FR_MOD, Fr
     from plonkathon_tpu_torch.ops import curve, msm2
+    from plonkathon_tpu_torch.ops.curve import FixedBaseMSM
     from plonkathon_tpu_torch.ops.limbs import fr, to_device
     from plonkathon_tpu_torch.parallel.sharded import MeshMSM, sharded_msm
 
     setup = Setup.from_file(PTAU, device="cpu")
+    powers = setup.powers_of_x
     rng = random.Random(20261019)
-    coeffs = [[rng.randrange(FR_MOD) for _ in range(m)] for m in (24, 64)]
+    coeffs = [[rng.randrange(FR_MOD) for _ in range(m)] for m in (24, 64, 67, 1)]
     coeffs[1][0], coeffs[1][-1] = 0, FR_MOD - 1
     polys = [to_device(fr.to_mont_host_many(c), "cpu") for c in coeffs]
-    want = [ec_lincomb([(setup.powers_of_x[i], Fr(v)) for i, v in enumerate(c)]) for c in coeffs]
-    msm2_engine = MeshMSM(setup.powers_of_x, 64, mesh, "shard", cache_path=prefix)
-    msm3_engine = MeshMSM(setup.powers_of_x, 64, mesh, "shard")
+    want = [ec_lincomb([(powers[i], Fr(v)) for i, v in enumerate(c)]) for c in coeffs]
+    msm2_engine = MeshMSM(FixedBaseMSM(powers[:64], "cpu", cache_path=prefix), mesh, "shard")
+    msm3_engine = MeshMSM(FixedBaseMSM(powers[:64], "cpu"), mesh, "shard")
     msm3_engine.engine._MSM3_MIN = 32
-    assert msm2_engine.commit_batch(polys) == want
+    assert msm2_engine.n == 64 and msm2_engine.engine.n == 32
+    assert msm2_engine.commit_batch(polys[:2]) == want[:2]
+    assert [curve.jac_to_affine_host(msm2_engine.msm_mont(p)) for p in polys[:2]] == want[:2]
     assert msm3_engine.commit_mont(polys[1]) == want[1]
+    assert curve.jac_to_affine_host(msm3_engine.msm_mont(polys[1])) == want[1]
     assert msm3_engine.engine._tab16_n == 32 and msm2_engine.engine._tab16_n == 0
+    odd = MeshMSM(FixedBaseMSM(powers[:67], "cpu"), mesh, "shard")
+    assert odd.engine.n == (34, 33)[mesh.index("shard")]
+    assert curve.jac_to_affine_host(odd.msm_mont(polys[2])) == want[2]
+    one = MeshMSM(FixedBaseMSM(powers[:1], "cpu"), mesh, "shard")
+    assert (one.engine is None) == (mesh.index("shard") == 1)
+    assert curve.jac_to_affine_host(one.msm_mont(polys[3])) == want[3]
+    try:
+        msm2_engine.msm_mont(polys[2])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a commit of 67 coefficients on 64 points did not raise")
 
     mine = f"{prefix}.rank{mesh.index('shard')}of2.affine32.npz"
     assert msm2_engine.engine.cache_path == f"{prefix}.rank{mesh.index('shard')}of2"
@@ -213,16 +235,23 @@ def mesh_msm_rank(mesh, prefix):
 
     msm2.build_affine_tables = no_build
     try:
-        assert MeshMSM(setup.powers_of_x, 64, mesh, "shard", cache_path=prefix).commit_mont(
-            polys[1]) == want[1]
+        cached = MeshMSM(FixedBaseMSM(powers[:64], "cpu", cache_path=prefix), mesh, "shard")
+        assert cached.commit_mont(polys[1]) == want[1]
     finally:
         msm2.build_affine_tables = built
 
     digits = [rng.randrange(256) for _ in range(64)]
-    bases = curve.jac_from_affine(*curve.points_to_device(setup.powers_of_x[:64], "cpu"))
+    bases = curve.jac_from_affine(*curve.points_to_device(powers[:64], "cpu"))
     got = sharded_msm(mesh, "shard", bases, torch.tensor(digits, dtype=torch.int32))
     assert curve.jac_to_affine_host(got) == ec_lincomb(
-        [(p, Fr(d)) for p, d in zip(setup.powers_of_x, digits)])
+        [(p, Fr(d)) for p, d in zip(powers, digits)])
+
+    ident = curve.jac_identity((1,), "cpu")
+    pts = [curve.jac_from_affine(*curve.points_to_device([pt_mul(G1, k)], "cpu")) for k in (3, 7, 11)]
+    lanes = [pts[0], ident, pts[1], pts[2]] + [ident] * 4  # rank 1's block: all identity
+    bases = tuple(torch.cat([p[i] for p in lanes], dim=1) for i in range(3))
+    got = sharded_msm(mesh, "shard", bases, torch.arange(1, 9, dtype=torch.int32))
+    assert curve.jac_to_affine_host(got) == pt_mul(G1, 3 + 21 + 44)
 
 
 def rounds_rank(mesh):

@@ -1,9 +1,11 @@
 """The port's length-sharded pieces (parallel/sharded.py) on spawned CPU
 ranks over Gloo, D = 2: sharded_ntt and sharded_intt against the port's
-single-device ntt, MeshMSM against the host ec_lincomb (through msm2, and through
-msm3 on a second engine whose threshold is lowered; with a cache prefix, one
-table file a rank, loaded by a second engine), sharded_msm against the same
-commit, sharded_round2 ... sharded_round5 against the
+single-device ntt, MeshMSM(engine, mesh, axis) against the host ec_lincomb
+(commit_batch and msm_mont, through msm2, and through msm3 on a second engine
+whose threshold is lowered; msm_mont on engines of 67 and 1 points, whose
+blocks are uneven or empty; with a cache prefix, one table file a rank,
+loaded by a second engine), sharded_msm against the same commit and over
+identity bases, sharded_round2 ... sharded_round5 against the
 single-device rounds on the same transcript state (the turbo + lookup
 circuit at n = 16), all equal after canon; and the one direct JAX
 comparison: the port's sharded_ntt against the JAX package's on

@@ -188,8 +188,9 @@ def test_table_cache_round_trip_both_routes(srs, cache_dir, engine, monkeypatch)
 
 def test_msm_entry_points(srs, engine, monkeypatch):
     """msm_variable_base through both routes, jac_fold_sum at an odd width
-    (raw limbs equal to the JAX package's halving order on the plain add),
-    msm_mont, commit_many_mont and precomp_for."""
+    (raw limbs equal to the JAX package's halving order on the plain add)
+    and at width 0 (the identity), msm_mont, commit_many_mont and
+    precomp_for."""
     x, y = C.points_to_device(srs.powers_of_x, "cpu")
     m = 16
     coeffs = random_coeffs(16, m)
@@ -215,6 +216,9 @@ def test_msm_entry_points(srs, engine, monkeypatch):
     while ref[0].shape[-1] > 1:
         ref = cuda_mont.jac_add_plain(tuple(c[:, 0::2] for c in ref), tuple(c[:, 1::2] for c in ref))
     assert all(torch.equal(g, r[:, 0]) for g, r in zip(got, ref))
+    empty = C.jac_fold_sum(tuple(c[:, :0] for c in pts))  # the JAX package: one identity
+    assert C.jac_to_affine_host(empty) is None
+    assert all(torch.equal(e, i) for e, i in zip(empty, C.jac_identity((), "cpu")))
 
     part = random_coeffs(24, 24)
     assert jac_ints(engine.msm_mont(mont(part))) == lincomb(srs.powers_of_x, part)
