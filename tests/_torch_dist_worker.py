@@ -17,7 +17,12 @@ FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 PTAU = os.path.join(FIXTURES, "powersOfTau28_hez_final_11.ptau")
 
 
-def _entry(rank: int, world: int, store: str, fn, args):
+def _entry(rank: int, world: int, store: str, calls, out_dir: str):
+    """Rank `rank`: each fn(mesh, *args) of `calls` in turn on one mesh;
+    after the i-th, writes `{out_dir}/{i}.rank{rank}`: empty if it
+    returned, else its traceback."""
+    import traceback
+
     import torch
 
     torch.set_num_threads(1)  # the ranks share the test machine's cores
@@ -26,26 +31,78 @@ def _entry(rank: int, world: int, store: str, fn, args):
 
     init_distributed(f"file://{store}", world, rank, device="cpu")
     try:
-        fn(make_mesh(device="cpu"), *args)
+        mesh = make_mesh(device="cpu")
+        for i, (fn, args) in enumerate(calls):
+            try:
+                fn(mesh, *args)
+                error = ""
+            except BaseException:  # pytest.raises' "DID NOT RAISE" is no Exception
+                error = traceback.format_exc()
+            path = os.path.join(out_dir, f"{i}.rank{rank}")
+            with open(path + ".tmp", "w") as f:
+                f.write(error)
+            os.replace(path + ".tmp", path)
     finally:
         import torch.distributed as dist
 
         dist.destroy_process_group()
 
 
+def run_rank_group(calls: dict, world: int, tmp_path, timeout: float = 240.0) -> dict:
+    """Run each fn(mesh, *args) of `calls` ({name: (fn, args)}), in order,
+    on one group of `world` spawned CPU ranks over Gloo (a file store under
+    tmp_path): one spawn, so the ranks import torch and meet once.  Each
+    function has `timeout` s from the end of the one before it.  Returns
+    {name: None where every rank returned, else what the ranks raised
+    (their tracebacks) or why the function did not run}."""
+    out = os.path.join(str(tmp_path), "rank_results")
+    os.makedirs(out)
+    names = list(calls)
+    store = os.path.join(str(tmp_path), "store")
+    ctx = mp.start_processes(_entry, args=(world, store, list(calls.values()), out),
+                             nprocs=world, join=False, start_method="spawn")
+    files = lambda i: [os.path.join(out, f"{i}.rank{r}") for r in range(world)]  # noqa: E731
+    finished, deadline, failure = 0, time.monotonic() + timeout, None
+    try:
+        while not ctx.join(timeout=1.0):
+            while finished < len(names) and all(map(os.path.exists, files(finished))):
+                finished, deadline = finished + 1, time.monotonic() + timeout
+            if time.monotonic() > deadline:
+                what = names[finished] if finished < len(names) else "their exit"
+                failure = f"{world} ranks did not finish {what} in {timeout} s"
+                break
+    except Exception as e:  # a rank died, or raised before or after the functions
+        failure = f"{world} ranks ended early: {e}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    results = {}
+    for i, name in enumerate(names):
+        if not all(map(os.path.exists, files(i))):
+            results[name] = failure or f"{name} did not run"
+            continue
+        errors = []
+        for r, path in enumerate(files(i)):
+            with open(path) as f:
+                text = f.read()
+            if text:
+                errors.append(f"rank {r} of {world}:\n{text}")
+        results[name] = "\n".join(errors) or None
+    return results
+
+
+def raise_for(results: dict, name: str) -> None:
+    """Raise what `name`'s ranks raised (run_rank_group's results)."""
+    if results[name] is not None:
+        raise AssertionError(f"{name} on spawned ranks:\n{results[name]}")
+
+
 def run_ranks(fn, world: int, tmp_path, *args, timeout: float = 240.0):
     """Run fn(mesh, *args) on `world` spawned CPU ranks over Gloo (a file
-    store under tmp_path); raises what a rank raised, or TimeoutError."""
-    store = os.path.join(str(tmp_path), "store")
-    ctx = mp.start_processes(_entry, args=(world, store, fn, args), nprocs=world,
-                             join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
-    while not ctx.join(timeout=1.0):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.kill()
-            raise TimeoutError(f"{world} ranks of {fn.__name__} did not finish in {timeout} s")
-    assert not any(p.is_alive() for p in ctx.processes)
+    store under tmp_path); raises what a rank raised, or that the ranks did
+    not finish in `timeout` s."""
+    raise_for(run_rank_group({fn.__name__: (fn, args)}, world, tmp_path, timeout), fn.__name__)
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +179,8 @@ def meshes_rank(mesh):
 
 
 # ---------------------------------------------------------------------------
-# Sharded transforms, commits and rounds (tests/test_torch_sharded.py).
+# Sharded transforms (tests/test_torch_collectives.py), commits and rounds
+# (tests/test_torch_sharded.py).
 # ---------------------------------------------------------------------------
 
 NTT_N1 = NTT_N2 = 8
@@ -281,6 +339,8 @@ def rounds_rank(mesh):
             return out
         return wrapped
 
+    spied = {name: getattr(P, name) for name in
+             ("_perm_grand_product", "_barycentric_batch", "_linearization_impl")}
     P._perm_grand_product = spy("r2", P._perm_grand_product)
     P._barycentric_batch = spy("r4", P._barycentric_batch)
     P._linearization_impl = spy("r5", P._linearization_impl)
@@ -292,7 +352,12 @@ def rounds_rank(mesh):
         return quot, qcoeffs
 
     P.Prover._round_3_single = round3
-    prover.prove(dict(turbo_lookup_witness(program)))
+    try:  # the rank runs other functions after this one (run_rank_group)
+        prover.prove(dict(turbo_lookup_witness(program)))
+    finally:
+        P.Prover._round_3_single = single3
+        for name, fn in spied.items():
+            setattr(P, name, fn)
 
     def same(a, b, what):
         assert torch.equal(fr.canon(a), fr.canon(b)), what
@@ -331,7 +396,7 @@ def rounds_rank(mesh):
 
 
 # ---------------------------------------------------------------------------
-# Sharded proofs (tests/test_torch_sharded_prover.py).
+# Sharded proofs (tests/test_torch_sharded.py).
 # ---------------------------------------------------------------------------
 
 THREE_GATE = ["e public", "c <== a * b", "e <== c * d"]

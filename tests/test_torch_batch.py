@@ -2,7 +2,7 @@
 equal field for field to the single prover's proof of its witness; the
 JAX package's tests/test_batch.py and test_zk_blinding.py's
 batch-refuses-blinding case, with the port's refusals of lookups and of a
-mesh that is not the port's Mesh (tests/test_torch_sharded_prover.py
+mesh that is not the port's Mesh (tests/test_torch_sharded.py
 shards a batch over a mesh).
 """
 

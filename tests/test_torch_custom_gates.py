@@ -5,7 +5,8 @@ verifier accepting the port's cube-gate proof.
 One row `c <== a * a * a` replaces two vanilla rows: the circuit gains a
 QCUBE selector column, the quotient the term q_cube * A^3, the
 linearization QCUBE * a_eval^3, and the key a ninth commitment (None for
-vanilla circuits, whose snarkjs layout tests/test_torch_vkeys.py pins).
+vanilla circuits, whose snarkjs layout tests/test_torch_vkeys.py pins,
+with the vanilla key of VANILLA_LINES below).
 A slow test holds a cube-chain proof field for field against the JAX
 prover's.
 """
@@ -78,11 +79,6 @@ def test_cube_gate_matches_vanilla_semantics(vanilla):
     vk_v, proof_v, wv = vanilla
     assert wv["out"] == 27**3
     assert vk_v.verify_proof(8, proof_v, [27**3])
-
-
-def test_vanilla_vk_has_no_qcube(vanilla):
-    vk_v = vanilla[0]
-    assert vk_v.Qcube is None and vk_v.Qk is None and vk_v.Tbl is None
 
 
 def test_reference_host_verifier_accepts_port_cube_proof(cube):

@@ -3,7 +3,8 @@ Setup.from_file -> Program -> Prover.prove -> VerificationKey.verify_proof.
 
 * proof.pickle verifies under both port verifiers;
 * the port prover (debug=True) reproduces proof.pickle field for field;
-* prove/verify round trips, and the factorization circuit at n = 16;
+* prove/verify round trips (the factorization circuit at n = 16 is in
+  tests/test_torch_vkeys.py);
 * the prover's per-round Timings and the torch.profiler trace helpers.
 A slow test runs both provers on the factorization circuit and compares
 every proof field.
@@ -93,14 +94,6 @@ def test_tampered_proof_rejected(three_gate):
         proof.msg_2, proof.msg_3, proof.msg_4, proof.msg_5))
     assert not vk.verify_proof(8, broken, [60])
     assert not vk.verify_proof_unoptimized(8, broken, [60])
-
-
-def test_factorization_circuit(setup):
-    program = Program.from_str(FACTOR_SRC, 16, device="cpu")
-    assignments = program.fill_variable_assignments(dict(FACTOR_BITS))
-    vk = setup.verification_key(program.common_preprocessed_input())
-    proof = Prover(setup, program, device="cpu").prove(assignments)
-    assert vk.verify_proof(16, proof, [91])
 
 
 def test_round_timings_and_trace_capture(three_gate, tmp_path):

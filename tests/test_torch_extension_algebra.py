@@ -4,7 +4,9 @@ same seeded limbs (CPU; JAX runs eagerly at width 32, as plain jnp).
 * `_quotient_impl` with the cube-gate term and the five PlonKup identities;
 * the lookup grand product Z2 (the port's `_lookup_z2` against JAX's
   `_lookup_z2_kernel`), the wrap-around row masked to one;
-* `_linearization_impl` with the cube term and the PlonKup terms.
+* `_linearization_impl` with the cube term and the PlonKup terms;
+* FieldOps' inversions and predicates (fr, fq) against the JAX package's
+  (moved here from tests/test_torch_fieldops.py, whose helpers they use).
 
 Inputs are random lazy-domain elements [0, 2p); outputs are compared after
 `canon` (multi-op chains: the lazy add/sub and the inversions may leave
@@ -21,6 +23,8 @@ from plonkathon_tpu.ops.limbs import fr as jax_fr
 from plonkathon_tpu_torch import prover as port_prover
 from plonkathon_tpu_torch.fields import FR_MOD
 from plonkathon_tpu_torch.ops.limbs import encode_ints, fr
+
+from test_torch_fieldops import PAIRS, _j, _rand, _raw_equal
 
 torch.set_num_threads(1)  # small tensors: threads only contend with xdist
 
@@ -124,3 +128,21 @@ def test_linearization_with_cube_and_lookup_terms(lookup):
     for got, want in zip(call(port_prover._linearization_impl, rows_t, sc_t),
                          call(jax_prover._linearization_impl, rows_j, sc_j)):
         _same_values(got, want)
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_fieldops_inversions_and_predicates(field):
+    ours, theirs = PAIRS[field]
+    rng = np.random.default_rng(102)
+    a = _rand(rng, ours, 16)[:, 3:]  # nonzero lanes
+    # Fermat inversion: the same square-and-multiply, the same raw limbs.
+    assert _raw_equal(ours.inv(a), theirs.inv(_j(a)))
+    # The product tree inverts on the host at its root: same values mod p.
+    inv = ours.batch_inv(a)
+    p = ours.modulus
+    for x, y in zip(ours.from_mont_host_many(a), ours.from_mont_host_many(inv)):
+        assert x * y % p == 1
+    assert _raw_equal(ours.pow_int(a, 11), theirs.pow_int(_j(a), 11))
+    z = torch.cat([a[:, :2], ours.const("P", "cpu", 2), torch.zeros_like(a[:, :1])], dim=1)
+    assert ours.is_zero(z).tolist() == [False, False, True, True]
+    assert ours.eq(z, ours.canon(z)).all()

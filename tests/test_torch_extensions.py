@@ -2,7 +2,7 @@
 blinding rows, alone and composed at the Program level with a lookup table
 or with cube gates, prove and verify under both port verifiers and the JAX
 package's host verifier (by integer coordinates); a mesh that is not the
-port's Mesh raises TypeError (tests/test_torch_sharded_prover.py proves
+port's Mesh raises TypeError (tests/test_torch_sharded.py proves
 with one).
 """
 

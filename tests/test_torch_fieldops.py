@@ -2,7 +2,9 @@
 
 FieldOps (fr, fq) against plonkathon_tpu.ops.limbs.fr/fq in raw limbs.
 Inputs come from numpy.random.default_rng; comparisons are exact.  No JAX
-round kernel is compiled.
+round kernel is compiled.  The inversions and predicates are in
+tests/test_torch_extension_algebra.py, with the rest of the port's limb
+algebra against the JAX package's (PERF.md, "Tier-1 queue", says why).
 """
 
 import numpy as np
@@ -57,21 +59,3 @@ def test_fieldops_broadcast_scalar_like_jax(field):
     a, s = _rand(rng, ours, 16), _rand(rng, ours, 1)
     assert _raw_equal(ours.mul(s, a), theirs.mul(_j(s), _j(a)))
     assert _raw_equal(ours.sub(s, a), theirs.sub(_j(s), _j(a)))
-
-
-@pytest.mark.parametrize("field", ["fr", "fq"])
-def test_fieldops_inversions_and_predicates(field):
-    ours, theirs = PAIRS[field]
-    rng = np.random.default_rng(102)
-    a = _rand(rng, ours, 16)[:, 3:]  # nonzero lanes
-    # Fermat inversion: the same square-and-multiply, the same raw limbs.
-    assert _raw_equal(ours.inv(a), theirs.inv(_j(a)))
-    # The product tree inverts on the host at its root: same values mod p.
-    inv = ours.batch_inv(a)
-    p = ours.modulus
-    for x, y in zip(ours.from_mont_host_many(a), ours.from_mont_host_many(inv)):
-        assert x * y % p == 1
-    assert _raw_equal(ours.pow_int(a, 11), theirs.pow_int(_j(a), 11))
-    z = torch.cat([a[:, :2], ours.const("P", "cpu", 2), torch.zeros_like(a[:, :1])], dim=1)
-    assert ours.is_zero(z).tolist() == [False, False, True, True]
-    assert ours.eq(z, ours.canon(z)).all()

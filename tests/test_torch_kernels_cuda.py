@@ -12,9 +12,16 @@ card against the CPU's.
 This file imports neither JAX nor the JAX package, so that it runs on a
 machine with the card and no JAX; it also holds the input builders that
 the CPU kernel tests share.  Without a card every test here skips.  On
-the card, from the repository root:
+the card, from the repository root (with tests/test_torch_g1_cuda.py, the
+point kernels K5, K6, K7 and K8b, whose place in the Tier-1 queue that
+file's docstring explains):
 
-    python -m pytest -p no:cacheprovider --noconftest -o addopts="" -m cuda tests/test_torch_kernels_cuda.py
+    python -m pytest -p no:cacheprovider --noconftest -o addopts="" -m cuda tests/test_torch_kernels_cuda.py tests/test_torch_g1_cuda.py
+
+Its 19 tests are not `slow`, so xdist queues this file first of all in the
+Tier-1 run, ahead of tests/test_sharded.py: the one port file allowed 7 or
+more (tests/test_torch_build.py), because without a card its tests skip at
+once and its worker takes its next file within the first second.
 """
 
 import numpy as np
@@ -22,7 +29,7 @@ import pytest
 import torch
 
 from plonkathon_tpu_torch.ec import G1, pt_mul, pt_neg
-from plonkathon_tpu_torch.ops import cuda_lib, cuda_mont as CM, msm2 as TM, msm3 as T3
+from plonkathon_tpu_torch.ops import cuda_lib, cuda_mont as CM, msm3 as T3
 from plonkathon_tpu_torch.ops.limbs import fq, fr, encode_ints, to_device
 
 W = 32
@@ -126,7 +133,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; on the chip run `python -m pytest "
                     "-p no:cacheprovider --noconftest -o addopts=\"\" -m cuda "
-                    "tests/test_torch_kernels_cuda.py`")
+                    "tests/test_torch_kernels_cuda.py tests/test_torch_g1_cuda.py`")
     return torch.device("cuda")
 
 
@@ -150,51 +157,10 @@ def test_cuda_k2_equals_plain(cuda):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.cuda
-def test_cuda_k5_equals_plain(cuda):
-    a, b = (x.to(cuda) for x in point_pairs(np.random.default_rng(12), 1000))
-    assert torch.equal(TM.jadd_stacked(a, b), TM.jadd_stacked_plain(a, b))
-
-
-@pytest.mark.cuda
-def test_cuda_k6_equals_plain(cuda):
-    d_t, p_t, pts = (x.to(cuda) for x in scan_inputs(np.random.default_rng(13), 8, 300))
-    assert torch.equal(TM.run_scan(d_t, p_t, pts), TM.run_scan_plain(d_t, p_t, pts))
-
-
-@pytest.mark.cuda
-def test_cuda_k6_ragged_warp_equals_plain(cuda):
-    """2^10 + 8 chunks: the last warp's 16 thread pairs hold 8 chunks and 8
-    mirrors of the last one, which must store nothing; chunk 0 doubles,
-    chunk 1 cancels."""
-    chunks = (1 << 10) + 8
-    d_t, p_t, pts = (x.to(cuda) for x in scan_inputs(np.random.default_rng(43), 12, chunks))
-    cuda_lib.reset_launches()
-    got = TM.run_scan(d_t, p_t, pts)
-    assert cuda_lib.LAUNCHES["K6"] == 1
-    assert torch.equal(got, TM.run_scan_plain(d_t, p_t, pts))
-
-
 def top_limbs(w, rows=16):
     """2p - 1 (Fq) in every coordinate: int32[rows, w] limbs."""
     col = torch.from_numpy(encode_ints([2 * fq.modulus - 1]))
     return col.repeat(rows // 16, w)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_times", [8, 16])
-def test_cuda_k7_equals_plain(cuda, n_times):
-    """Lane 0 and lanes 8-11 are identities (Z = 0, random X and Y), lanes
-    5-7 have every coordinate at 2p - 1, lane 12 has Z = p."""
-    a, _ = point_pairs(np.random.default_rng(14), 700)
-    a[:, 5:8] = top_limbs(3, 48)
-    a[32:, 8:12] = 0
-    a[32:, 12] = torch.from_numpy(encode_ints([fq.modulus]))[:, 0]
-    p = tuple(c.to(cuda) for c in coords(a))
-    got = CM.jac_double_n(p, n_times)
-    want = CM.jac_double_n_plain(p, n_times)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert not got[2][:, [0, 8, 9, 10, 11]].any()  # identities stay identities
 
 
 @pytest.mark.cuda
@@ -271,13 +237,6 @@ def test_cuda_setup_generate_one_window_launch(cuda):
     got = Setup.generate(2**6, device=cuda)
     assert cuda_lib.LAUNCHES["K8a"] == 1 and cuda_lib.LAUNCHES["K8a add"] == 0
     assert got.powers_of_x == Setup.generate(2**6, device="cpu").powers_of_x
-
-
-@pytest.mark.cuda
-def test_cuda_k8b_equals_plain(cuda):
-    a, b = (coords(x.to(cuda)) for x in point_pairs(np.random.default_rng(18), 1000))
-    got, want = CM.jac_madd(a, b[:2]), CM.jac_madd_plain(a, b[:2])
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -3,9 +3,12 @@
 The Stockham NTT (forward and inverse), the coset transforms and
 barycentric evaluation against plonkathon_tpu.ops.ntt at small n, after
 canon.  Inputs come from numpy.random.default_rng; comparisons are exact.
-No JAX round kernel is compiled.
+No JAX round kernel is compiled.  The JAX transforms are jitted in their
+package; the JAX canon of their outputs runs under one `jax.jit` a shape
+(~0.3 s of XLA:CPU compile, where its limb ops one by one took ~2 s).
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,8 @@ from test_torch_fieldops import _j, _rand, _raw_equal
 
 torch.set_num_threads(1)  # small tensors: threads only contend with xdist
 
+jax_canon = jax.jit(JL.fr.canon)
+
 
 @pytest.mark.parametrize("n", [8, 256])
 def test_ntt_matches_jax(n):
@@ -27,7 +32,7 @@ def test_ntt_matches_jax(n):
     v = _rand(rng, fr, n)
     for inverse in (False, True):
         got = fr.canon(TN.ntt(v, inverse=inverse))
-        want = JL.fr.canon(JN.ntt(_j(v), inverse=inverse))
+        want = jax_canon(JN.ntt(_j(v), inverse=inverse))
         assert _raw_equal(got, want), f"inverse={inverse}"
 
 
@@ -45,7 +50,7 @@ def test_coset_extend_matches_jax():
     v = _rand(np.random.default_rng(105), fr, 16)
     off = fr.scalar(7, "cpu")
     assert _raw_equal(
-        fr.canon(TN.coset_extend(v, off)), JL.fr.canon(JN.coset_extend(_j(v), _j(off)))
+        fr.canon(TN.coset_extend(v, off)), jax_canon(JN.coset_extend(_j(v), _j(off)))
     )
 
 
@@ -54,7 +59,7 @@ def test_coset_to_coeffs_matches_jax():
     offinv = fr.scalar(pow(7, -1, FR_MOD), "cpu")
     assert _raw_equal(
         fr.canon(TN.coset_to_coeffs(v4, offinv)),
-        JL.fr.canon(JN.coset_to_coeffs(_j(v4), _j(offinv))),
+        jax_canon(JN.coset_to_coeffs(_j(v4), _j(offinv))),
     )
 
 

@@ -2,13 +2,16 @@
 port's own Stockham transform (CPU).
 
 `ntt_fourstep` of both packages is called directly at a small n (the JAX
-one eagerly: plain jnp limb ops, no round kernel is compiled; n = 32 so
-that the two passes have unequal lengths, 4 and 8); at n = 2^8
+one, plain jnp limb ops and no round kernel, under one `jax.jit` a
+direction: one XLA:CPU compile of the whole transform costs ~9 s where
+compiling each limb op on its own cost ~60 s; n = 32 so that the two
+passes have unequal lengths, 4 and 8); at n = 2^8
 the port's batched and unbatched transforms are compared; at n = 2^14,
 where `ntt()` starts to route to it, the port's two transforms are held
 against each other.  All comparisons are exact, after canon.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -26,13 +29,13 @@ torch.set_num_threads(1)  # small tensors: threads only contend with xdist
 @pytest.mark.parametrize("inverse", [False, True])
 def test_fourstep_matches_jax(inverse):
     """One shape for both directions, a [16, 2, 32] stack with an unequal
-    split (n1 = 4, n2 = 8): JAX compiles each limb op once per shape, and
-    that is most of this test's time."""
+    split (n1 = 4, n2 = 8); the JAX transform and its canon compile as one
+    function, and that is most of this test's time."""
     n = 32
     assert TF._split(n) == JF._split(n) == (4, 8)
     v = _rand(np.random.default_rng(110), fr, 2 * n).reshape(16, 2, n)
     got = fr.canon(TF.ntt_fourstep(v, n, inverse))
-    want = JL.fr.canon(JF.ntt_fourstep(_j(v), n, inverse))
+    want = jax.jit(lambda x: JL.fr.canon(JF.ntt_fourstep(x, n, inverse)))(_j(v))
     assert _raw_equal(got, want)
 
 

@@ -1,6 +1,9 @@
 """The port's commitments against the JAX package's pinned fixtures (CPU):
 the golden commitment and the three snarkjs verification keys
-(tests/test_e2e.py:35-67), on the ceremony SRS."""
+(tests/test_e2e.py:35-67), on the ceremony SRS, and the key of a vanilla
+circuit without the extensions' commitments (tests/test_torch_custom_gates.py's
+VANILLA_LINES); and the factorization circuit of tests/test_torch_e2e.py at
+n = 16 proved and verified on it."""
 
 import json
 import os
@@ -8,8 +11,11 @@ import os
 import pytest
 import torch
 
-from plonkathon_tpu_torch import Basis, Polynomial, Program, Setup, interpret_json_point
+from plonkathon_tpu_torch import Basis, Polynomial, Program, Prover, Setup, interpret_json_point
 from plonkathon_tpu_torch.fields import Fq
+
+from test_torch_custom_gates import VANILLA_LINES
+from test_torch_e2e import FACTOR_BITS, FACTOR_SRC
 
 torch.set_num_threads(1)  # small tensors: threads only contend with xdist
 
@@ -49,3 +55,17 @@ def test_vkey_matches_snarkjs(setup, lines, fixture):
         assert interpret_json_point(theirs[key]) == getattr(vk, key), key
     assert vk.w == int(theirs["w"])
     assert vk.w == 19540430494807482326159819597004422086093766032135589407132600596362845576832
+
+
+def test_vanilla_vk_has_no_qcube(setup):
+    program = Program(VANILLA_LINES, 8, device="cpu")
+    vk_v = setup.verification_key(program.common_preprocessed_input())
+    assert vk_v.Qcube is None and vk_v.Qk is None and vk_v.Tbl is None
+
+
+def test_factorization_circuit(setup):
+    program = Program.from_str(FACTOR_SRC, 16, device="cpu")
+    assignments = program.fill_variable_assignments(dict(FACTOR_BITS))
+    vk = setup.verification_key(program.common_preprocessed_input())
+    proof = Prover(setup, program, device="cpu").prove(assignments)
+    assert vk.verify_proof(16, proof, [91])
