@@ -1,0 +1,4 @@
+"""torch.cuda.max_memory_allocated() over the run (reset at the start of set-up), GiB."""
+
+def read(run):
+    return run.memory_peak_bytes / 2**30 if run.memory_peak_bytes else None
