@@ -45,6 +45,7 @@ also the query column f and the Z2 closure).
 
 from __future__ import annotations
 
+import operator
 import secrets
 from dataclasses import dataclass
 
@@ -54,7 +55,7 @@ import torch
 from .fields import Fr, FR_MOD
 from .frontend import Program, CommonPreprocessedInput
 from .kzg import Setup
-from .ops.limbs import fr, NLIMBS, DTYPE, encode_ints, to_device, resolve_device
+from .ops.limbs import fr, NLIMBS, DTYPE, LIMB_MASK, encode_ints, to_device, resolve_device
 from .ops import ntt as _ntt
 from .poly import Polynomial, Basis
 from .transcript import (
@@ -495,24 +496,33 @@ class Prover:
                 "ZK blinding requires an SRS with at least group_order + 3 "
                 "G1 powers"
             )
-        # Round-1 witness gather plan: wire slot -> unique-variable id, so
-        # each proof encodes every distinct witness value once and builds
-        # the A/B/C columns with one numpy fancy-index.
+        # Round-1 witness plan: the distinct variables in order of first
+        # appearance, the None wire as one zero slot after them, and each
+        # wire's slot as a device index [3, m], so each proof encodes every
+        # distinct witness value once on the host and the device gathers
+        # the A/B/C columns.
         wires = program.wires()
         var_ids: dict = {}
         for w in wires:
             for v in (w.L, w.R, w.O):
-                if v not in var_ids:
+                if v is not None and v not in var_ids:
                     var_ids[v] = len(var_ids)
-        self._var_order = list(var_ids)
-        self._wire_idx = np.array(
+        order = list(var_ids)
+        var_ids[None] = len(order)
+        self._var_order = order
+        # itemgetter of one key returns the bare value, not a tuple.
+        self._var_values = (
+            operator.itemgetter(*order) if len(order) > 1 else lambda w: [w[v] for v in order]
+        )
+        self._wire_idx = torch.tensor(
             [
                 [var_ids[w.L] for w in wires],
                 [var_ids[w.R] for w in wires],
                 [var_ids[w.O] for w in wires],
             ],
-            dtype=np.int64,
+            dtype=torch.int64, device=self.device,
         )
+        self._public_vars = program.get_public_assignments()
         pk = self.pk
         self._selector_stack = torch.stack(
             [pk.QL.values, pk.QR.values, pk.QM.values, pk.QO.values, pk.QC.values],
@@ -596,17 +606,6 @@ class Prover:
         """A coefficient stack [16, B, count, m] -> per-proof row lists."""
         return [[stack[:, i, j, :] for j in range(stack.shape[2])] for i in range(stack.shape[1])]
 
-    def _pi_limbs(self, witness: dict) -> np.ndarray:
-        """PI's Lagrange values, -public input on its row and 0 elsewhere,
-        as Montgomery limbs int32[16, n]."""
-        public_vars = self.program.get_public_assignments()
-        pi_arr = np.zeros((NLIMBS, self.group_order), dtype=np.int32)
-        if public_vars:
-            pi_arr[:, : len(public_vars)] = fr.to_mont_host_many(
-                [(-int(witness[v])) % FR_MOD for v in public_vars]
-            )
-        return pi_arr
-
     def prove(self, witness: dict) -> Proof:
         return self._prove_batch([witness])[0]
 
@@ -624,9 +623,7 @@ class Prover:
         transcripts = [Transcript(b"plonk") for _ in witnesses]
         # Like the reference, pk and PI are not absorbed — required for
         # bit-identical challenge streams.
-        witnesses = [dict(w) for w in witnesses]
         self._nb = len(witnesses)
-        self.PI = to_device(np.stack([self._pi_limbs(w) for w in witnesses], axis=1), self.device)
 
         with self.timings.section("round_1"):
             msg_1 = self.round_1(witnesses)
@@ -688,35 +685,46 @@ class Prover:
         s = sorted_by_table(fvals[: n - 1], self._tbl_ints)
         return encode_ints(fvals + s[:n] + s[n - 1 :]).reshape(NLIMBS, 3, n)
 
-    def _wire_raw(self, witness: dict) -> np.ndarray:
-        """The wire columns A, B, C as raw limbs int32[16, 3, n]: each
-        distinct witness value encoded once, then one gather over the
-        wire plan; with blinding rows, the last t rows of each column take
-        fresh random values (selectors are zero and sigma the identity
-        there, so any values satisfy the constraints)."""
-        n = self.group_order
-        t = self.program.blinding_rows
-        tails = [_blinders(t) for _ in range(3)] if t else None
-        if None not in witness:
-            witness[None] = 0
-        var_limbs = encode_ints(
-            [int(witness[v]) % FR_MOD for v in self._var_order]
-        )  # [16, n_vars]
-        m = self._wire_idx.shape[1]
-        abc_raw = np.zeros((NLIMBS, 3, n), dtype=np.int32)
-        abc_raw[:, :, :m] = var_limbs[:, self._wire_idx]
-        if t:
-            for j in range(3):
-                abc_raw[:, j, n - t :] = encode_ints(tails[j])
-        return abc_raw
+    def _witness_columns(self, witnesses: list[dict]):
+        """Round 1's Lagrange columns of B witnesses, Montgomery limbs on
+        the device: A, B, C (and with lookups f, h1, h2) [16, B, 3 (+3), n]
+        and PI (-public input on its row, 0 elsewhere) [16, B, n].
 
-    def round_1(self, witnesses: list[dict]) -> list[Message1]:
-        raw = np.stack([self._wire_raw(w) for w in witnesses], axis=1)  # [16, B, 3, n]
+        The host reduces each distinct witness value mod p and encodes it
+        once, 32 little-endian bytes, all B proofs in one buffer and one
+        upload; the device widens the bytes to limbs and gathers A, B, C
+        over the wire plan.  With blinding rows, the last t rows of each
+        wire column take fresh random values (selectors are zero and sigma
+        the identity there, so any values satisfy the constraints).  The
+        witnesses are only read."""
+        nb, n, t = len(witnesses), self.group_order, self.program.blinding_rows
+        slots = len(self._var_order) + 1
+        with self.timings.section("round_1_witness_host"):
+            get = self._var_values
+            buf = bytearray().join(
+                [(int(x) % FR_MOD).to_bytes(32, "little") for w in witnesses for x in (*get(w), 0)]
+            )
+            tails = encode_ints(_blinders(3 * t * nb)) if t else None
+            pi = fr.to_mont_host_many(
+                [(-int(w[v])) % FR_MOD for w in witnesses for v in self._public_vars]
+            )
+        limbs = torch.frombuffer(buf, dtype=torch.int16).to(self.device)
+        limbs = (limbs.to(DTYPE) & LIMB_MASK).view(nb, slots, NLIMBS).permute(2, 0, 1)
+        raw = torch.zeros((NLIMBS, nb, 3, n), dtype=DTYPE, device=self.device)
+        raw[..., : self._wire_idx.shape[1]] = limbs[:, :, self._wire_idx]
+        if t:
+            raw[..., n - t :] = to_device(tails, self.device).view(NLIMBS, nb, 3, t)
         if self._lookup:
             with self.timings.section("round_1_lookup_host"):
                 lk = np.stack([self._lookup_columns(w) for w in witnesses], axis=1)
-            raw = np.concatenate([raw, lk], axis=2)
-        cols = fr.to_mont(to_device(raw, self.device))  # [16, B, 3 (+3), n]
+            raw = torch.cat([raw, to_device(lk, self.device)], dim=2)
+        pi_cols = torch.zeros((NLIMBS, nb, n), dtype=DTYPE, device=self.device)
+        npub = len(self._public_vars)
+        pi_cols[..., :npub] = to_device(pi, self.device).view(NLIMBS, nb, npub)
+        return fr.to_mont(raw), pi_cols
+
+    def round_1(self, witnesses: list[dict]) -> list[Message1]:
+        cols, self.PI = self._witness_columns(witnesses)  # [16, B, 3 (+3), n], [16, B, n]
         self.A, self.B, self.C = (cols[:, :, i, :] for i in range(3))
         polys = self._rows(self._intt(cols))
         if self._lookup:
