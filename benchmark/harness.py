@@ -2,9 +2,10 @@
 traced stretch, the comparison with the plain reference, and the result
 line.  Everything specific to a cell is data: BENCHMARK.json names the
 cell's configuration and traffic; the configuration's file
-(configs/<name>.json) its circuit family (families/<family>.py) and sizes;
-the traffic file (workloads/<traffic>.json) how requests are made and sent;
-each metric is read by metrics/<name>.py."""
+(configs/<name>.json) its circuit family (families/<family>.py), sizes,
+SRS size (`srs_powers`, else `group_order`) and judge (`reference`, a
+module as check.py describes); the traffic file (workloads/<traffic>.json)
+how requests are made and sent; each metric is read by metrics/<name>.py."""
 
 from __future__ import annotations
 
@@ -168,7 +169,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
     n = cfg["group_order"]
 
     t = time.perf_counter()
-    setup = Setup.generate(n, tau=tau, device=device)
+    setup = Setup.generate(cfg.get("srs_powers", n), tau=tau, device=device)
     r.spans["srs_generate_s"] = time.perf_counter() - t
     t = time.perf_counter()
     program = Program(family.lines(cfg), n, device=device, **family.program_options(cfg))
@@ -252,7 +253,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda"
     sample = _sample(answers, traffic.get("check_sample", 8), seed)
     t = time.perf_counter()
     counts = {"proofs_missing": missing}
-    counts.update(check.judge(cfg["family"], cfg, tau, inputs, sample,
+    counts.update(check.judge(cfg, tau, inputs, sample, answers,
                               len(os.sched_getaffinity(0)) if workers is None else workers))
     counts["proofs_checked"] = len(sample)
     print(f"benchmark: set-up {r.setup_s:.3f} s {json.dumps(r.spans)}; window {r.window_s:.3f} s, "
@@ -306,7 +307,7 @@ def _result(cell: Cell, r: Run, counts: dict, attempted: int, trace: bool, on_ca
         value = reader(m["name"])(r)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    checks = {k: {"value": counts[k], "limit": lim} for k, lim in check.LIMITS.items()}
+    checks = {k: {"value": counts[k], "limit": lim} for k, lim in check.limits(cell.config).items()}
     checks["proofs_checked"] = {"value": counts["proofs_checked"], "at_least": 1}
     correct = all(c["value"] <= c["limit"] for c in checks.values() if "limit" in c)
     correct = correct and counts["proofs_checked"] >= 1

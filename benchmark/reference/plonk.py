@@ -36,6 +36,14 @@ from . import bn254
 from .bn254 import R, batch_inv, dot, inv, lincomb, mul_g, on_curve
 from .transcript import Transcript
 
+# The counts `Checker.check` returns, each with its limit (see benchmark/check.py).
+LIMITS = {
+    "commits_wrong": 0,     # a, b, c, z (and f, h1, h2, z2) not p(tau) G
+    "quotient_wrong": 0,    # t_lo + tau^n t_mid + tau^2n t_hi not t(tau) G
+    "evals_wrong": 0,       # round 4's openings not the reference's evaluations
+    "openings_wrong": 0,    # W_zeta, W_zeta_omega not the reference's
+}
+
 EVAL_KEYS = ("a_eval", "b_eval", "c_eval", "s1_eval", "s2_eval", "z_shifted_eval")
 LOOKUP_EVAL_ORDER = ("f", "t", "h1", "h2", "t_w", "h1_w", "h2_w", "z2_w")
 
@@ -390,3 +398,9 @@ class Checker:
                    % R * ((ed + e["h2"] + delta * e["h2_w"]) % R)
                    - a5 * ln % R * e["h2_w"] - a6 * ln + a7 * (tl - e["f"])) % R
         return c_z2, c_h1, c_qk, c_const
+
+
+def checker(lines: list[str], cfg: dict, table: list[int] | None, tau: int) -> Checker:
+    """The judge of a configuration's proofs: its circuit at `group_order`
+    rows on the SRS of trapdoor tau."""
+    return Checker(Circuit(lines, cfg["group_order"], table=table), tau)

@@ -16,7 +16,7 @@ import pytest
 
 from _small import ROOT, run_small
 
-from benchmark import harness
+from benchmark import check, harness
 
 SPEC = harness.load_spec()
 BENCH = os.path.join(ROOT, "benchmark")
@@ -32,6 +32,9 @@ def test_files_found_by_name_match_the_spec():
         assert data["name"] == conf["name"] and data["reduced"] == conf["reduced"]
         assert os.path.exists(os.path.join(BENCH, "families", data["family"] + ".py"))
         assert all(k in data for k in conf["reduced"])
+        assert data["reference"].startswith("benchmark/")
+        assert os.path.isfile(os.path.join(ROOT, data["reference"]))
+        assert isinstance(check.reference(data).LIMITS, dict)
     for w in SPEC["workloads"]:
         cell = harness.resolve(SPEC, w["name"])
         assert cell.traffic["pool"] >= max(cell.traffic.get("batch", 1), 1)
@@ -96,6 +99,19 @@ def test_refuses_without_a_card(tmp_path):
         proc = subprocess.run([sys.executable, "benchmark/run.py", *args], cwd=cwd,
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0 and proc.stdout.strip() == "", proc.stdout
+
+
+def test_judge_leaves_no_process():
+    # Two workers judge a batch's proofs in spawned processes; the pool's
+    # resource tracker has ended by the time the result is made.
+    from multiprocessing import resource_tracker
+
+    from _small import small_cell
+
+    result, _ = harness.run(small_cell("chain-n262144-batch"), 2**40 + 7, 0.2, trace=False,
+                            device="cpu", workers=2)
+    assert result["correct"] and result["checks"]["proofs_checked"]["value"] >= 2
+    assert resource_tracker._resource_tracker._pid is None
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "plonkathon_tpu", "chip_smoke", "scripts"}
